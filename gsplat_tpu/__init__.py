@@ -1,6 +1,6 @@
-"""gsplat_tpu — a TPU-native differentiable 3D Gaussian-splat rendering framework.
+"""gsplat_tpu — a differentiable 3D Gaussian-splat rendering framework.
 
-Built from scratch in JAX/Pallas/pjit with the capabilities of the reference
+Built from scratch in JAX/Pallas with the capabilities of the reference
 Houdini HDK/GLSL viewport plugin (rubendhz/houdini-gsplat-renderer, mounted at
 /root/reference): EWA-projected screen-space Gaussians, SH color (deg 0-3),
 global depth sort, tile binning, front-to-back alpha compositing — plus the

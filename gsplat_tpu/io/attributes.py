@@ -1,6 +1,6 @@
 """Houdini-convention attribute-dict ingest.
 
-The TPU-native replacement for the reference's GR extraction layer
+The replacement for the reference's GR extraction layer
 (``gsplat_plugin/src/GR_GSplat.C:191-372``): takes a dict of point-attribute
 arrays (as a Houdini exporter or ``hou`` session would produce) and resolves
 them into a canonical :class:`GaussianSplats`, reproducing the reference's

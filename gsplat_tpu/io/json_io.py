@@ -3,7 +3,7 @@
 The reference primitive persists itself into Houdini's .hip/.geo files via a
 JSON schema (``geo_PrimGsplatJSON``, ``gsplat_plugin/src/GEO_GSplat.C:162-258``
 — a single ``vertex`` array field; splat attributes ride Houdini's own
-attribute serialization).  The TPU framework's scene IS its attribute set, so
+attribute serialization).  This framework's scene IS its attribute set, so
 the JSON document stores every field of :class:`GaussianSplats` directly:
 base64-encoded little-endian arrays (bit-exact round trip) plus shape/dtype
 metadata and a format version.

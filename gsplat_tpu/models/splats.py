@@ -1,6 +1,6 @@
 """Gaussian-splat scene data model.
 
-TPU-native replacement for the reference's geometry layers: the custom
+The replacement for the reference's geometry layers: the custom
 ``GEO_PrimGsplat`` GA primitive (``gsplat_plugin/src/GEO_GSplat.C:413-431``)
 and the ``GSplatSource`` SOP that wraps points into it
 (``gsplat_plugin/src/SOP_GSplat.C:93-117``).  Instead of a GA attribute
@@ -8,11 +8,9 @@ table, a splat cluster is a JAX pytree of plain arrays — shardable with
 ``jax.sharding``, differentiable, and directly consumable by jitted render
 functions.
 
-**Layout: transposed structure-of-arrays.**  TPU arrays are tiled (8, 128)
-over their last two dims, so a per-splat row layout like ``pos[N, 3]`` pads
-the 3-wide minor dim to 128 lanes (42× memory) and ``sh[N, 15, 3]`` pads to
-(16, 128) *per splat* (113× — 8 GB for 1M splats).  Storing components on
-the sublane axis and splats on the lane axis keeps everything dense:
+**Layout: transposed structure-of-arrays.**  Components on the leading
+axis and splats on the last (contiguous) axis, so every per-component
+elementwise chain over all splats reads contiguous memory and fuses:
 
 * ``pos``      (3, N)  float32 — world positions (``P``).
 * ``orient``   (4, N)  — quaternion in **xyzw** component order (``orient``).

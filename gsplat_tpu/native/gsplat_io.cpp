@@ -2,7 +2,7 @@
 //
 // The reference implements its host runtime in C++ (attribute extraction,
 // TBB-parallel packing, CPU depth sort — gsplat_plugin/src/GR_GSplat.C:302-372,
-// src/GSplatRenderer.C:176-216,448-505).  The TPU framework's device compute
+// src/GSplatRenderer.C:176-216,448-505).  This framework's device compute
 // is JAX/Pallas; this file is the native equivalent of the *host* runtime
 // around it: multithreaded PLY column extraction with fused activations
 // (sigmoid opacity / exp scale / quaternion reorder+normalize), a

@@ -1,6 +1,6 @@
 """EWA covariance projection and 2×2 eigen-decomposition.
 
-TPU-native re-implementation of the reference GLSL core lib:
+Re-implementation of the reference GLSL core lib:
 
 * ``CalcCovariance2D`` — EWA Splatting (Zwicker et al. 2002) eq. 31 with the
   reference's exact constants: ±1.3·tanFov view-space clamp, focal =

@@ -1,951 +1,341 @@
-"""Fused Pallas TPU compositing kernels (forward + backward).
+"""Fused tile-compositing kernels for the GPU (Pallas, Triton route).
 
-The TPU replacement for the reference's GL fragment stage + fixed-function
-blend (``gsplat_plugin/shaders/GSplatShaderSource.h:293-315``,
-``src/GSplatRenderer.C:605-647``): one program per 32×32-pixel tile walks its
-depth-ordered (tile, splat) pair segment front-to-back and accumulates
-premultiplied color with the "under" operator, with early termination once
-every pixel in the tile is saturated.
+The reference's GL fragment stage + fixed-function blend
+(``gsplat_plugin/shaders/GSplatShaderSource.h:293-315``,
+``src/GSplatRenderer.C:605-647``) as one Pallas kernel per 32×32-pixel
+screen tile: the program walks its depth-ordered (tile, splat) pair segment
+front to back and accumulates premultiplied color with the "under" operator,
+stopping once every pixel of the tile is saturated.
 
-Design notes (TPU-first, no GL analogue):
+Design (the per-tile front-to-back shape of the 3DGS CUDA rasterizer):
 
-* A 32×32 pixel tile is packed into one native (8, 128) VPU register:
-  ``row = sublane + 8·(lane // 32)``, ``col = lane % 32``.  Square-ish tiles
-  waste far less masked work on typical splat footprints than an (8, 128)
-  pixel rectangle.
-* Pair payloads are stored transposed (C_PAD=16 fields × P pairs) and DMA'd
-  HBM→**SMEM** in double-buffered chunks of 128 pairs (8 KB).  Per-splat
-  fields are then *scalar* reads — the VPU broadcasts scalars natively, so
-  the per-splat hot loop is pure (8, 128) vector math with zero vector
-  relayouts (Mosaic has no cheap lane→sublane broadcast, so a vectorized
-  splat-block formulation actually loses).
-* Segments are read **unaligned**: pairs stay in tile-sorted order
-  (``ops/binning.py`` does no re-layout), and each tile DMAs from its
-  chunk-aligned ``base = start − φ``, masking the φ lead lanes and the tail
-  lanes — those belong to neighbouring tiles, and a masked lane's opacity
-  is forced to 0, which makes both its compositing contribution and every
-  one of its gradient rows exactly zero.  This removes a 4M-query pair
-  scatter (~27 ms at 1M splats) from the hot path.
-* The backward kernel cannot write *shared* chunks racelessly, so its
-  per-pair gradients go to a separate chunk-aligned **gradient address
-  space** (``binning.grad_base``: one exclusive region per tile); the
-  segment-reduce VJP reads it back through ``dest_of_exp``.
-* The backward kernel replays each tile front-to-back from per-chunk
-  transmittance checkpoints recorded by the forward pass — division-free
-  and exact even for saturated pixels.  Early-terminated pairs get exact
-  zero gradients via the per-tile stop counter.
+* One program per tile; the tile's 1024 pixels are one flat vector
+  (``pixel = row·32 + col``).  Each program loads its own segment bounds
+  (``tile_start``, ``tile_count``) and reads its pairs at any alignment.
+* The pair payload is a (rows, P) f32 matrix in tile-sorted order; per pair
+  the kernel reads its 10 (11 with the depth test) fields as scalars, which
+  every thread of the block shares, and does the alpha/blend math on the
+  pixel vector.
+* The pair walk runs in chunks of ``config.chunk`` pairs.  After each chunk
+  the block checks whether any pixel's transmittance is still above
+  ``transmittance_eps``; if none is, the tile stops.
+* Forward-for-backward also writes the transmittance at the start of every
+  chunk (a checkpoint) and the number of pairs the tile composited.  The
+  backward walks the chunks in reverse: it replays each chunk front to back
+  from its checkpoint, keeping every pair's transmittance in registers, then
+  walks the chunk back to front with the division-free suffix identities
+  (see ``_bwd_kernel``).  Pairs after the stop point get exact zero
+  gradients.
+* The backward reduces each pair's gradient over the tile's pixels inside
+  the block and writes one row per pair at the pair's own index: every pair
+  belongs to exactly one tile, so the stores never race.  The per-splat sum
+  of those rows is an XLA ``segment_sum`` over ``pair_splat``.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ...utils.config import RenderConfig
 from ..covariance import ALPHA_CUTOFF, QUAD_EXTENT
-from .segsum import pad_pairs as segsum_pad_pairs, segsum_by_splat
 
-TILE = 32          # logical pixel tile is TILE×TILE
-PACK_SUB = 8       # sublanes
-PACK_LANES = 128   # lanes; TILE*TILE == PACK_SUB*PACK_LANES
-C_PAD = 16         # payload rows in HBM/SMEM: Mosaic requires DMA slices
-                   # 8-aligned on the sublane dim, so the kernels see 16 rows
-                   # (10 real + 6 zero).  The XLA-side gathers are the
-                   # expensive part (the gather unit is element-sequential:
-                   # cost = rows × queries), so they run on 10-row views and
-                   # the zero rows are appended by a cheap fused pad.
-C_USED = 10        # payload rows the kernels read / gradients exist for
-N_SUMS = 9         # per-pair raw moment rows batched through gmat: the quad
-                   # basis is per-splat, so the 10 gradient scalars are
-                   # per-splat linear combinations of 9 pixel sums
-                   # (Σdp2·dx, Σdp2·dy, Σdp2·dx², Σdp2·dxdy, Σdp2·dy²,
-                   # Σdc·w ×3, Σdp2) — one less reduction and no per-pair
-                   # qx/qy recompute in the gradient walk.  Row ORDER is
-                   # load-bearing: the TPU gather unit fetches sublanes in
-                   # groups of 8, so a 9-row gather costs exactly a 16-row
-                   # one (~2.2×).  The VJP therefore reads the gradient
-                   # space with an 8-row gather (rows 0..7) plus a 2-row
-                   # gather (rows 8..9) — Σdp2 (opacity's only consumer)
-                   # lives at row 8 so the split lands on the 8-sublane
-                   # boundary (measured 36 ms vs 42 ms for one 9-row gather
-                   # at 3M queries, scripts/profile_gather5.py).
-UNROLL = int(os.environ.get("GSPLAT_UNROLL", "4"))
-                   # compositing loop unroll (must divide chunk); env knob
-                   # for on-chip sweeps (scripts/profile_chunk.py) — per-pair
-                   # alpha math is independent, transmittance chains exactly,
-                   # so any unroll is bit-identical
-GUNROLL = 8        # backward gradient-walk group: 8 pairs' sublane-reduced
-                   # moment rows pack into one (8, 128) register so every
-                   # gmat write is a full-tile aligned store (sub-register
-                   # stores measured ~2 cycles each — scripts/profile_bwd.py
-                   # ablations); must divide chunk and equal PACK_SUB for
-                   # store alignment
-N_ROWS_IN = 6      # per-pair rows the backward kernel actually emits into
-                   # gmat: {S0=Σdp2, S1=Σdp2·s, S2=Σdp2·s², Σdc·w ×3} — the
-                   # 5 dp2 moments are rebuilt from S0..S2 at chunk end by
-                   # lane arithmetic (dx has no sublane structure; dy = lane
-                   # part + sublane index), because moving a row into gmat
-                   # costs ~2 cycles whatever the store shape — row COUNT is
-                   # the only lever
+TILE = 32              # a program composites one TILE×TILE pixel tile
+NPIX = TILE * TILE     # pixels per program (a power of two, as Triton needs)
+G_ROWS = 16            # per-pair gradient row width (10 used; power of two)
+NUM_WARPS = 4          # 128 threads, 8 pixels each per vector: of 2/4/8/16
+                       # warps × chunk 4/8/16/32, 4 warps at chunk 4-8 ran the
+                       # 1M/1080p forward+backward fastest on an H100
 
 
-P_ROWS_PACKED = 8  # packed-mode payload rows: [cx cy ax ay bx by (r,g) (b,op)]
-G_ROWS_PACKED = 8  # packed-mode gradient rows: [t1 t2 xx xy yy cr (cg,cb) r0]
-
-
-@jax.custom_vjp
-def round_bf16(x: jnp.ndarray) -> jnp.ndarray:
-    """f32 → bf16-rounded f32 via INTEGER round-to-nearest-even on the bit
-    pattern, with a STRAIGHT-THROUGH gradient (identity VJP — the same
-    gradient ``astype(bf16).astype(f32)`` has; without it the integer
-    bitcasts silently ZERO every gradient flowing through the rounding,
-    which fake-passed parity because both backends zeroed identically).  The obvious ``astype(bf16).astype(f32)`` is NOT used because
-    XLA:TPU compiles with ``--xla_allow_excess_precision=true`` here, which
-    lets the optimizer elide the precision-reducing convert pair entirely —
-    leaving unrounded floats whose low mantissa bits then corrupt the
-    pairwise bit-pack (caught on-chip: hi halves off by one bf16 LSB, lo
-    halves ORed with hi's residual bits).  Integer ops cannot be
-    excess-precision-elided, and the same helper quantizes every backend,
-    so parity is preserved bit-for-bit.  Exact for finite inputs (the
-    sanitize contract); the bit-bias carry can only reach the sign bit from
-    exponent 0xFE, i.e. values ≥ 2^127, which sanitized payloads exclude."""
-    bits = jax.lax.bitcast_convert_type(x, jnp.int32)
-    lsb = jax.lax.shift_right_logical(bits, 16) & 1
-    rounded = (bits + 0x7FFF + lsb) & jnp.int32(-65536)
-    return jax.lax.bitcast_convert_type(rounded, jnp.float32)
-
-
-def _round_bf16_fwd(x):
-    return round_bf16(x), None
-
-
-def _round_bf16_bwd(_, g):
-    return (g,)
-
-
-round_bf16.defvjp(_round_bf16_fwd, _round_bf16_bwd)
-
-
-def pack2(hi: jnp.ndarray, lo: jnp.ndarray) -> jnp.ndarray:
-    """Bit-pack two f32 arrays, bf16-ROUNDING each (see :func:`round_bf16`;
-    idempotent on already-rounded values): ``hi``'s top 16 bits (== its bf16
-    encoding) in the high half, ``lo``'s in the low half.  Returns INT32 —
-    packed words must never travel as f32: when the hi half is 0.0 the f32
-    bit pattern is a denormal, and XLA:TPU flushes denormals to zero in
-    fused FP paths (caught on-chip: every pair with r == 0 lost its g
-    bits).  Integer arrays are immune.  Exact round-trip with
-    :func:`unpack2`."""
-    hb = jax.lax.bitcast_convert_type(round_bf16(hi), jnp.int32)
-    lb = jax.lax.bitcast_convert_type(round_bf16(lo), jnp.int32)
-    return hb | jax.lax.shift_right_logical(lb, 16)
-
-
-def unpack2(bits: jnp.ndarray):
-    """Inverse of :func:`pack2`: one int32 array → (hi, lo) f32 arrays."""
-    hi = jax.lax.bitcast_convert_type(bits & jnp.int32(-65536), jnp.float32)
-    lo = jax.lax.bitcast_convert_type(
-        jax.lax.shift_left(bits, jnp.full(bits.shape, 16, jnp.int32)),
-        jnp.float32,
-    )
-    return hi, lo
-
-
-def _unpack_scalar(v):
-    """Kernel-side :func:`unpack2` of one packed SMEM int32 scalar → two
-    (8, 128) f32 vectors.  Mosaic has no scalar bitcast ('tpu.bitcast' is
-    vector-only), so the scalar is broadcast FIRST (native scalar→vector
-    move) and the bit surgery runs on vregs — bitcasts are register
-    reinterprets, so the per-field cost is one broadcast + two int vreg ops."""
-    vv = jnp.full((PACK_SUB, PACK_LANES), v, jnp.int32)
-    return unpack2(vv)
-
-
-def _scalar_f32(v):
-    """Kernel-side int32 SMEM scalar (a bitcast f32 geometry field of the
-    packed payload) → (8, 128) f32 vector: broadcast then vector bitcast."""
-    vv = jnp.full((PACK_SUB, PACK_LANES), v, jnp.int32)
-    return jax.lax.bitcast_convert_type(vv, jnp.float32)
-
-
-def _payload_rows(config) -> int:
-    return P_ROWS_PACKED if config.payload_dtype == "packed" else C_PAD
-
-
-def _grad_rows(config) -> int:
-    return G_ROWS_PACKED if config.payload_dtype == "packed" else C_PAD
-
-
-def _pixel_coords(ty, tx):
-    """Pixel-center coordinates of tile (ty, tx) — ty in *global* screen tile
-    rows (strip renders pass strided program row + offset) — packed (8, 128)."""
-    li = jax.lax.broadcasted_iota(jnp.int32, (PACK_SUB, PACK_LANES), 1)
-    si = jax.lax.broadcasted_iota(jnp.int32, (PACK_SUB, PACK_LANES), 0)
-    col = li % TILE
-    row = si + PACK_SUB * (li // TILE)
-    px = (tx * TILE + col).astype(jnp.float32) + 0.5
-    py = (ty * TILE + row).astype(jnp.float32) + 0.5
+def _pixel_coords(txg, tyg):
+    """Pixel-center coordinates of global tile (tyg, txg): (NPIX,) f32."""
+    lane = jnp.arange(NPIX, dtype=jnp.int32)
+    px = (txg * TILE + (lane % TILE)).astype(jnp.float32) + 0.5
+    py = (tyg * TILE + (lane // TILE)).astype(jnp.float32) + 0.5
     return px, py
 
 
-def _splat_alpha(
-    buf, slot, i, px, py, max_alpha, soft_cutoff, valid,
-    wireframe=False, line_px=1.0, packed=False, op_in=None, bgd=None,
-):
-    """One splat's (8, 128) alpha from scalar SMEM fields.
+def _tile_origin(t, ntx, off_ref, row_stride, col_stride):
+    """Global (tile col, tile row) of program t: local · stride + offset."""
+    ty = t // ntx
+    tx = t - ty * ntx
+    return tx * col_stride + off_ref[1], ty * row_stride + off_ref[0]
 
-    ``valid`` (scalar bool): False for lanes outside this tile's segment
-    (they hold a neighbouring tile's pairs) — masked by zeroing the opacity
-    scalar, which costs nothing on the vector units.
 
-    ``wireframe``: replace the Gaussian falloff with an opaque band test on
-    the quad edge (the reference's line-quad debug pass,
-    ``GSplatShaderSource.h:22-110``): α = 1 within ``line_px`` of the ±2
-    extent (band half-width converted to quad units per axis via |A|, |B|),
-    0 elsewhere — front-to-back compositing then gives "nearest splat wins".
+def _load_pair(pay_ref, pos, valid, depth_test):
+    """One pair's payload scalars; a masked pair's opacity reads as 0."""
+    f = [pay_ref[k, pos] for k in range(10)]
+    f[9] = jnp.where(valid, f[9], 0.0)
+    z = pay_ref[10, pos] if depth_test else None
+    return f, z
 
-    ``packed``: the 8-row payload layout — opacity is the low half of packed
-    row 7 (an (8, 128) vector after :func:`_unpack_scalar`; every use below
-    is a vector context, so scalar-vs-vector op is transparent).  ``op_in``
-    lets a caller that already unpacked row 7 (the forward loop needs b too)
-    pass the opacity in, avoiding a second unpack.
-    """
-    if packed:
-        # int32 payload: geometry fields are bitcast f32 words (packed
-        # words must not travel as f32 — denormal flush; see pack2).
-        cx = _scalar_f32(buf[slot, 0, i])
-        cy = _scalar_f32(buf[slot, 1, i])
-        ax = _scalar_f32(buf[slot, 2, i])
-        ay = _scalar_f32(buf[slot, 3, i])
-        bx = _scalar_f32(buf[slot, 4, i])
-        by = _scalar_f32(buf[slot, 5, i])
-    else:
-        cx = buf[slot, 0, i]
-        cy = buf[slot, 1, i]
-        ax = buf[slot, 2, i]
-        ay = buf[slot, 3, i]
-        bx = buf[slot, 4, i]
-        by = buf[slot, 5, i]
-    if op_in is not None:
-        op_raw = op_in
-    elif packed:
-        _, op_raw = _unpack_scalar(buf[slot, 7, i])
-    else:
-        op_raw = buf[slot, 9, i]
-    op = jnp.where(valid, op_raw, 0.0)
+
+def _alpha(f, z, px, py, bgd, cfg_alpha):
+    """Per-pixel alpha of one pair plus the intermediates the backward
+    needs.  ``cfg_alpha`` = (max_alpha, soft_cutoff, wireframe, line_px)."""
+    max_alpha, soft_cutoff, wireframe, line_px = cfg_alpha
+    cx, cy, ax, ay, bx, by = f[0], f[1], f[2], f[3], f[4], f[5]
+    op = f[9]
     dx = px - cx
     dy = py - cy
     qx = dx * ax + dy * ay
     qy = dx * bx + dy * by
     if wireframe:
+        # Opaque band on the ±QUAD_EXTENT quad edge (the reference's
+        # line-quad pass, GSplatShaderSource.h:22-110): the band half-width
+        # in quad units is line_px·|A| (resp. |B|) on the dominant axis.
         wq1 = line_px * jnp.sqrt(ax * ax + ay * ay)
         wq2 = line_px * jnp.sqrt(bx * bx + by * by)
-        absqx = jnp.abs(qx)
-        absqy = jnp.abs(qy)
-        m = jnp.maximum(absqx, absqy)
-        wq = jnp.where(absqx > absqy, wq1, wq2)
+        aqx = jnp.abs(qx)
+        aqy = jnp.abs(qy)
+        m = jnp.maximum(aqx, aqy)
+        wq = jnp.where(aqx > aqy, wq1, wq2)
         on_edge = (jnp.abs(m - QUAD_EXTENT) <= wq) & (op > 0.0)
-        alpha = on_edge.astype(jnp.float32)
-        return alpha, qx, qy, dx, dy, op
+        return jnp.where(on_edge, 1.0, 0.0), dx, dy, qx, qy
     qx2 = qx * qx
     qy2 = qy * qy
-    power = qx2 + qy2
-    alpha = jnp.minimum(jnp.exp(-power) * op, max_alpha)
+    alpha = jnp.minimum(jnp.exp(-(qx2 + qy2)) * op, max_alpha)
     if not soft_cutoff:
-        # |q| ≤ 2 ⟺ max(qx², qy²) ≤ 4 (exact in f32; reuses the power
-        # operands; max-combine saves a compare per pair)
-        ext2 = QUAD_EXTENT * QUAD_EXTENT
-        inside = jnp.maximum(qx2, qy2) <= ext2
+        inside = jnp.maximum(qx2, qy2) <= QUAD_EXTENT * QUAD_EXTENT
         alpha = jnp.where(inside & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
     if bgd is not None:
-        # Depth-tested compositing into a host scene: kill pixels where the
-        # splat center's view-z lies behind the scene depth (the
-        # reference's z-tested, non-z-writing beauty pass —
-        # src/GSplatRenderer.C:595-610).  α = 0 also zeroes every gradient
-        # row the killed pixel would emit.
-        alpha = jnp.where(buf[slot, 10, i] <= bgd, alpha, 0.0)
-    return alpha, qx, qy, dx, dy, op
+        # Depth-tested compositing into a host scene: a splat whose center
+        # lies behind the scene depth is killed at that pixel (the
+        # reference's z-tested, non-z-writing beauty pass,
+        # src/GSplatRenderer.C:595-610).  α = 0 also zeroes its gradients.
+        alpha = jnp.where(z <= bgd, alpha, 0.0)
+    return alpha, dx, dy, qx, qy
 
 
 def _fwd_kernel(
-    base_ref,      # (T,) int32 — chunk-aligned DMA base per tile
-    phi_ref,       # (T,) int32 — lead phase (start − base)
-    span_ref,      # (T,) int32 — phi + count (0 for empty tiles)
-    off_ref,       # (2,) int32 — global tile (row, col) offset of this strip
-    payload_ref,   # (C_PAD, P_pad) HBM
-    *rest,         # [bgd_ref if depth_test] + out_ref + stop_ref +
-                   # [tchk_ref if checkpoint] + scratch
-    ntx: int,
-    chunk: int,
-    max_alpha: float,
-    soft_cutoff: bool,
-    t_eps: float,
-    checkpoint: bool,
-    wireframe: bool,
-    line_px: float,
-    packed: bool,
-    row_stride: int,
-    col_stride: int,
-    depth_test: bool,
+    start_ref, count_ref, off_ref, pay_ref, *rest,
+    ntx, chunk, t_eps, checkpoint, depth_test, strides, cfg_alpha,
 ):
     if depth_test:
         bgd_ref, rest = rest[0], rest[1:]
-    else:
-        bgd_ref = None
-    out_ref, stop_ref, rest = rest[0], rest[1], rest[2:]
-    if checkpoint:
-        tchk_ref, buf, sem = rest  # (1, 1, max_chunks, 8, 128) VMEM block
-    else:
-        tchk_ref = None
-        buf, sem = rest
-    bgd = bgd_ref[0, 0] if depth_test else None
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    t = ty * ntx + tx
-    base = base_ref[t]
-    phi = phi_ref[t]
-    span = span_ref[t]
-    nchunks = pl.cdiv(span, chunk)
-    # Global tile coords: local · stride + offset (cyclic sharded grids).
-    px, py = _pixel_coords(
-        ty * row_stride + off_ref[0], tx * col_stride + off_ref[1]
+    out_ref, stop_ref = rest[0], rest[1]
+    tchk_ref = rest[2] if checkpoint else None
+    t = pl.program_id(0)
+    start = start_ref[t]
+    count = count_ref[t]
+    txg, tyg = _tile_origin(t, ntx, off_ref, *strides)
+    px, py = _pixel_coords(txg, tyg)
+    bgd = bgd_ref[t, :] if depth_test else None
+    nchunks = pl.cdiv(count, chunk)
+    slot0 = start // chunk + t  # this tile's first checkpoint slot
+
+    def pair_step(k, carry, ci):
+        acc_r, acc_g, acc_b, trans = carry
+        i = ci * chunk + k
+        f, z = _load_pair(pay_ref, start + i, i < count, depth_test)
+        alpha = _alpha(f, z, px, py, bgd, cfg_alpha)[0]
+        w = alpha * trans
+        return (acc_r + w * f[6], acc_g + w * f[7], acc_b + w * f[8],
+                trans * (1.0 - alpha))
+
+    # A fori_loop over the chunks with the work under a cond, not a
+    # while_loop: the GPU compiler crashes on a while_loop whose carried
+    # vectors depend on a vector loaded from an input (the depth test's
+    # scene depth).  Chunks after the stop cost one scalar branch each.
+    def body(ci, state):
+        def run(s):
+            _, _, acc_r, acc_g, acc_b, trans = s
+            if checkpoint:
+                tchk_ref[slot0 + ci, :] = trans
+            acc_r, acc_g, acc_b, trans = jax.lax.fori_loop(
+                0, chunk, functools.partial(pair_step, ci=ci),
+                (acc_r, acc_g, acc_b, trans),
+            )
+            return jnp.max(trans) > t_eps, ci + 1, acc_r, acc_g, acc_b, trans
+
+        return jax.lax.cond(state[0], run, lambda s: s, state)
+
+    zeros = jnp.zeros((NPIX,), jnp.float32)
+    _, ci, acc_r, acc_g, acc_b, trans = jax.lax.fori_loop(
+        0, nchunks, body,
+        (jnp.bool_(True), jnp.int32(0), zeros, zeros, zeros, zeros + 1.0),
     )
-
-    def dma(slot, ci):
-        return pltpu.make_async_copy(
-            payload_ref.at[:, pl.ds(pl.multiple_of(base + ci * chunk, chunk), chunk)],
-            buf.at[slot],
-            sem.at[slot],
-        )
-
-    @pl.when(nchunks > 0)
-    def _():
-        dma(0, 0).start()
-
-    zeros = jnp.zeros((PACK_SUB, PACK_LANES), jnp.float32)
-    ones = jnp.ones((PACK_SUB, PACK_LANES), jnp.float32)
-
-    # `alive` is a scalar carry (computed at the end of each body) rather
-    # than a vector reduce inside the loop condition.
-    def cond(state):
-        ci, alive, _, _, _, _ = state
-        return jnp.logical_and(ci < nchunks, alive)
-
-    def body(state):
-        ci, _, acc_r, acc_g, acc_b, t_cur = state
-        slot = jax.lax.rem(ci, 2)
-        pos0 = ci * chunk
-
-        @pl.when(ci + 1 < nchunks)
-        def _():
-            dma(1 - slot, ci + 1).start()
-
-        dma(slot, ci).wait()
-        if checkpoint:
-            # T at this chunk's start: the backward pass replays each chunk
-            # from these instead of re-running the whole forward sweep.
-            tchk_ref[0, 0, ci] = t_cur
-
-        # Unrolled by UNROLL splats per iteration: the per-splat alpha math
-        # is independent (ILP for the VPU, batched SMEM scalar loads for the
-        # scalar unit); only the transmittance products chain — in exact
-        # sequential order, one multiply per splat, so results are
-        # bit-identical to the scalar loop.
-        def splat_body(k, s):
-            acc_r, acc_g, acc_b, t_cur = s
-            i0 = k * UNROLL
-            alphas = []
-            colors = []
-            for u in range(UNROLL):
-                pos = pos0 + i0 + u
-                valid = jnp.logical_and(pos >= phi, pos < span)
-                if packed:
-                    rv, gv = _unpack_scalar(buf[slot, 6, i0 + u])
-                    bv, opv = _unpack_scalar(buf[slot, 7, i0 + u])
-                    colors.append((rv, gv, bv))
-                    op_in = opv
-                else:
-                    op_in = None
-                alphas.append(
-                    _splat_alpha(
-                        buf, slot, i0 + u, px, py, max_alpha, soft_cutoff,
-                        valid, wireframe, line_px, packed, op_in, bgd,
-                    )[0]
-                )
-            prefixes = []
-            t_run = t_cur
-            for u in range(UNROLL):
-                prefixes.append(t_run)
-                t_run = t_run * (1.0 - alphas[u])
-            for u in range(UNROLL):
-                i = i0 + u
-                w = alphas[u] * prefixes[u]
-                if packed:
-                    rv, gv, bv = colors[u]
-                else:
-                    rv = buf[slot, 6, i]
-                    gv = buf[slot, 7, i]
-                    bv = buf[slot, 8, i]
-                acc_r = acc_r + w * rv
-                acc_g = acc_g + w * gv
-                acc_b = acc_b + w * bv
-            return acc_r, acc_g, acc_b, t_run
-
-        acc_r, acc_g, acc_b, t_cur = jax.lax.fori_loop(
-            0, chunk // UNROLL, splat_body, (acc_r, acc_g, acc_b, t_cur)
-        )
-        alive = jnp.max(t_cur) > t_eps
-        return ci + 1, alive, acc_r, acc_g, acc_b, t_cur
-
-    ci, _, acc_r, acc_g, acc_b, t_cur = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), jnp.bool_(True), zeros, zeros, zeros, ones)
-    )
-    # Early termination exits with the NEXT chunk's DMA already in flight
-    # (started at the top of the last body).  An unwaited DMA at kernel end
-    # aborts the TPU — drain it.
-    @pl.when(jnp.logical_and(ci >= 1, ci < nchunks))
-    def _():
-        dma(jax.lax.rem(ci, 2), ci).wait()
-
-    out_ref[0, 0, 0] = acc_r
-    out_ref[0, 0, 1] = acc_g
-    out_ref[0, 0, 2] = acc_b
-    out_ref[0, 0, 3] = 1.0 - t_cur
-    # Pair lanes actually composited, in span space (chunk-granular early
-    # stop); the backward pass starts its reverse walk here.
-    stop_ref[t] = jnp.minimum(span, ci * chunk)
+    out_ref[t, 0, :] = acc_r
+    out_ref[t, 1, :] = acc_g
+    out_ref[t, 2, :] = acc_b
+    out_ref[t, 3, :] = 1.0 - trans
+    # Pairs actually composited (ci = chunks walked; chunk-granular early
+    # stop): the backward walks exactly these.
+    stop_ref[t] = jnp.minimum(count, ci * chunk)
 
 
 def _bwd_kernel(
-    base_ref,      # (T,) int32 — chunk-aligned DMA base per tile
-    phi_ref,       # (T,) int32 — lead phase
-    span_ref,      # (T,) int32 — phi + count
-    used_ref,      # (T,) int32 — forward stop counter (span space)
-    gbase_ref,     # (T,) int32 — gradient-space region base (chunk-aligned)
-    off_ref,       # (2,) int32 — global tile (row, col) offset of this strip
-    payload_ref,   # (C_PAD, P_pad) HBM
-    *bwd_rest,     # [bgd_ref if depth_test] + dout_ref + tchk_ref +
-                   # zeros_ref + dpay_ref + scratch; unpacked below.
-                   # Original meanings:
-                   # dout_ref  (1, 1, 4, 8, 128) VMEM block
-                   # tchk_ref  (1, 1, max_chunks, 8, 128) VMEM block
-                   # zeros_ref (C_PAD, G_pad) HBM in — pre-zeroed, aliased:
-                   # chunks skipped by early termination keep their zeros, so
-                   # the kernel never walks them (one XLA memset replaces the
-                   # former per-chunk zero-DMA loop: 9.4k serialized DMAs per
-                   # frame at 1M/1080p — a pure pipeline stall)
-    ntx: int,
-    chunk: int,
-    max_chunks: int,
-    max_alpha: float,
-    soft_cutoff: bool,
-    packed: bool,
-    row_stride: int,
-    col_stride: int,
-    depth_test: bool,
+    start_ref, count_ref, stop_ref, off_ref, pay_ref, *rest,
+    ntx, chunk, depth_test, strides, cfg_alpha,
 ):
-    """Backward: division-free two-pass replay with MXU-batched reductions.
+    """Backward: division-free two-pass replay, one gradient row per pair.
 
-    Remaining positional refs (``bwd_rest``): dpay_ref (gradient address
-    space HBM out), then scratch: buf (2, rows, chunk) SMEM payload reads,
-    vbuf (2, 8, chunk) VMEM payload rows as lane vectors, dbuf staging,
-    gmat per-pair S rows, tsplat/asplat per-chunk replay memos, 3 DMA
-    semaphore pairs.
-
-    The textbook 3DGS backward reconstructs per-splat transmittance by
-    dividing the final T by (1−α) back-to-front; that collapses to zero for
-    saturated pixels once T underflows (front splats then lose their
-    gradients entirely).  Instead the forward rule checkpoints T at every
-    chunk start (``tchk`` — the rasterizer's ``jax.checkpoint`` policy, at
-    ~4 KB HBM per chunk); the backward walks chunks in reverse, recomputes T
-    (and α, memoized for the gradient walk) forward from the checkpoint —
-    exact, same ops as the forward kernel — then emits gradients
-    back-to-front using the division-free identities
-        S_i/(1−α_i)       = T_i·s̃_i,   s̃_i = c_{i+1}α_{i+1} + (1−α_{i+1})s̃_{i+1}
-        T_final/(1−α_i)   = T_i·R_i,   R_i = Π_{j>i}(1−α_j)
-    so every quantity is a bounded product of forward values.
-
-    Reads are the forward kernel's unaligned-segment chunks; writes go to
-    the tile's exclusive chunk-aligned region in the gradient address space
-    (``gbase``), so no program ever writes another program's chunk.  Masked
-    lanes (φ lead / tail) have α ≡ 0, which zeroes every gradient row they
-    emit.
-
-    Reduction strategy (the hot part): the gradient space carries the 9 RAW
-    MOMENT sums per pair (rows 0..8: Σdp2·dx, Σdp2·dy, Σdp2·dx², Σdp2·dxdy,
-    Σdp2·dy², Σdc·w ×3, Σdp2) — NOT the 10 final gradients — because the
-    quad-basis combine is linear with per-splat coefficients, so it commutes
-    with the per-splat pair summation and runs ONCE PER SPLAT after the
-    segment reduce (``_csp_bwd``).  In-kernel, each pair emits only SIX
-    sublane-reduced rows (``N_ROWS_IN``: S0/S1/S2 + the 3 color rows); the
-    chunk-end rebuilds the 9 moments with tile-local lane weights and a
-    row-domain splat-center shift (see the chunk-end comment) — moving a
-    row into ``gmat`` costs ~2 cycles regardless of store shape, so row
-    count is what matters (9 → 6 rows + no per-pair dx/dy products:
-    ~7 ms/frame at 1M/1080p, scripts/profile_bwd.py).
+    The textbook 3DGS backward recovers each pair's transmittance by
+    dividing the final T by (1−α) back to front, which collapses once T
+    underflows in saturated pixels.  Here every chunk is replayed forward
+    from the forward pass's checkpoint (same ops, so T is exact), and the
+    reverse walk uses the fused suffix accumulator
+        u_last = −d_A,   d_α_i = T_i·(K_i − u_i),   u_{i−1} = u_i + α_i·(K_i − u_i)
+    with K_i = dC·c_i — an exact rewrite of
+    d_α_i = T_i·K_i − (Σ_{j>i} K_j·α_j·T_j − d_A·T_final)/(1−α_i)
+    that never divides.
     """
-    rest = bwd_rest
+    max_alpha, soft_cutoff = cfg_alpha[0], cfg_alpha[1]
     if depth_test:
         bgd_ref, rest = rest[0], rest[1:]
-    else:
-        bgd_ref = None
-    (dout_ref, tchk_ref, zeros_ref, dpay_ref, buf, vbuf, dbuf, gmat,
-     tsplat, asplat, sem, vsem, dsem) = rest
-    bgd = bgd_ref[0, 0] if depth_test else None
-    ty = pl.program_id(0)
-    tx = pl.program_id(1)
-    t = ty * ntx + tx
-    base = base_ref[t]
-    phi = phi_ref[t]
-    span = span_ref[t]
-    used = used_ref[t]
-    gbase = gbase_ref[t]
-    nused = pl.cdiv(used, chunk)
-    tyg = ty * row_stride + off_ref[0]
-    txg = tx * col_stride + off_ref[1]
-    px, py = _pixel_coords(tyg, txg)
-    # Sublane iota (the s of v = vl + s) and the TILE-LOCAL per-lane pixel
-    # weight rows for the chunk-end moment rebuild: u = px − 32·tx depends
-    # on the lane only; v = py − 32·ty_glob = vl_row + s exactly (integers
-    # + 0.5).  Local weights keep |u|, |v| ≤ 32, so the splat-center shift
-    # in the row domain stays well-conditioned.
-    si_f = jax.lax.broadcasted_iota(
-        jnp.int32, (PACK_SUB, PACK_LANES), 0
-    ).astype(jnp.float32)
-    li1 = jax.lax.broadcasted_iota(jnp.int32, (1, PACK_LANES), 1)
-    u_row = (li1 % TILE).astype(jnp.float32) + 0.5
-    vl_row = (PACK_SUB * (li1 // TILE)).astype(jnp.float32) + 0.5
+    dout_ref, tchk_ref, _zeros_ref, dpair_ref = rest
+    t = pl.program_id(0)
+    start = start_ref[t]
+    count = count_ref[t]
+    txg, tyg = _tile_origin(t, ntx, off_ref, *strides)
+    px, py = _pixel_coords(txg, tyg)
+    bgd = bgd_ref[t, :] if depth_test else None
+    slot0 = start // chunk + t
+    dc_r = dout_ref[t, 0, :]
+    dc_g = dout_ref[t, 1, :]
+    dc_b = dout_ref[t, 2, :]
+    d_a = dout_ref[t, 3, :]
+    row = jnp.arange(G_ROWS, dtype=jnp.int32)
+    nused = pl.cdiv(stop_ref[t], chunk)
 
-    def dma_in(slot, ci):
-        return pltpu.make_async_copy(
-            payload_ref.at[:, pl.ds(pl.multiple_of(base + ci * chunk, chunk), chunk)],
-            buf.at[slot],
-            sem.at[slot],
-        )
-
-    def dma_vec(slot, ci):
-        return pltpu.make_async_copy(
-            payload_ref.at[0:8, pl.ds(pl.multiple_of(base + ci * chunk, chunk), chunk)],
-            vbuf.at[slot],
-            vsem.at[slot],
-        )
-
-    def dma_out(slot, ci):
-        return pltpu.make_async_copy(
-            dbuf.at[slot],
-            dpay_ref.at[:, pl.ds(pl.multiple_of(gbase + ci * chunk, chunk), chunk)],
-            dsem.at[slot],
-        )
-
-    # Chunks skipped by early termination keep the pre-zeroed gradient rows
-    # (zeros_ref is aliased into dpay_ref) — no zero-fill walk needed.
-    dc_r = dout_ref[0, 0, 0]
-    dc_g = dout_ref[0, 0, 1]
-    dc_b = dout_ref[0, 0, 2]
-    d_a = dout_ref[0, 0, 3]
-
-    # ---- reverse chunk walk: exact within-chunk T/α replay; gradients ----
-    @pl.when(nused > 0)
-    def _():
-        dma_in(jax.lax.rem(nused - 1, 2), nused - 1).start()
-        dma_vec(jax.lax.rem(nused - 1, 2), nused - 1).start()
-
-    def body(state):
-        k, u_acc = state  # k counts processed chunks (from the back)
+    def body(k, u):
         ci = nused - 1 - k
-        slot = jax.lax.rem(ci, 2)
-        pos0 = ci * chunk
-
-        @pl.when(ci - 1 >= 0)
-        def _():
-            dma_in(1 - slot, ci - 1).start()
-            dma_vec(1 - slot, ci - 1).start()
-
-        dma_in(slot, ci).wait()
-        dma_vec(slot, ci).wait()
-
-        # Make sure the out-staging slot we're about to fill is free.
-        oslot = jax.lax.rem(k, 2)
-
-        @pl.when(k >= 2)
-        def _():
-            dma_out(oslot, nused - 1 - (k - 2)).wait()
-
-        # Exact forward T replay within this chunk (same ops as fwd kernel);
-        # α is memoized so the gradient walk reads it instead of recomputing.
-        def fill_body(kk, t_c):
-            i0 = kk * UNROLL
-            alphas = []
-            for u in range(UNROLL):
-                pos = pos0 + i0 + u
-                valid = jnp.logical_and(pos >= phi, pos < span)
-                alphas.append(
-                    _splat_alpha(
-                        buf, slot, i0 + u, px, py, max_alpha, soft_cutoff,
-                        valid, packed=packed, bgd=bgd,
-                    )[0]
-                )
-            for u in range(UNROLL):
-                tsplat[i0 + u] = t_c
-                asplat[i0 + u] = alphas[u]
-                t_c = t_c * (1.0 - alphas[u])
-            return t_c
-
-        jax.lax.fori_loop(0, chunk // UNROLL, fill_body, tchk_ref[0, 0, ci])
-
-        # The walk runs in groups of GUNROLL = 8 pairs, and each pair emits
-        # only N_ROWS_IN = 6 sublane-reduced lane-rows — NOT the 9 moments.
-        # dx has no sublane structure (px depends on the lane only) and
-        # dy = (pyl − cy) + s with s the sublane index, so every dp2 moment
-        # factors through three sublane-weighted sums
-        #     S0 = Σ_s dp2,   S1 = Σ_s dp2·s,   S2 = Σ_s dp2·s²
-        # and the chunk-end reconstructs the 5 dp2 moments by LANE arithmetic
-        # (Σdp2·dy² = Σ_l (pyl−cy)²·S0 + 2(pyl−cy)·S1 + S2, etc).  Moving
-        # rows into gmat costs ~2 cycles each regardless of store shape
-        # (per-pair sub-register stores and 8×-batched packs measured within
-        # 1 ms of each other — scripts/profile_bwd.py ablations), so fewer
-        # rows is the only lever: 6 instead of 9 cuts the dominant term by a
-        # third.  The group's 8 rows per moment pack into one (8, 128)
-        # register and write with one aligned full-tile store.
-        def splat_body(jk, s):
-            u_acc = s
-            rows = []
-            for uu in range(GUNROLL):
-                i = chunk - 1 - (jk * GUNROLL + uu)
-                u_acc, r6 = _grad_one(u_acc, i)
-                rows.append(r6)
-            i_lo = chunk - GUNROLL * (jk + 1)
-            for kk in range(N_ROWS_IN):
-                block = jnp.concatenate(
-                    [rows[GUNROLL - 1 - m][kk] for m in range(GUNROLL)], axis=0
-                )
-                gmat[kk, pl.ds(i_lo, GUNROLL), :] = block
-            return u_acc
-
-        def _grad_one(u_acc, i):
-            # Fused suffix accumulator: u = dc·s̃ − d_a·R collapses the four
-            # textbook suffix carries (s̃_rgb, R) into one vector — then
-            #   d_alpha_i = t_i·(K_i − u),   K_i = r·dc_r + g·dc_g + b·dc_b
-            #   u' = u + α·(K_i − u)
-            # (both exact rewrites of the division-free identities in the
-            # docstring; (K_i − u) is shared) — 9 VPU ops/pair instead of 22.
-            if packed:
-                r, g = _unpack_scalar(buf[slot, 6, i])
-                b, _ = _unpack_scalar(buf[slot, 7, i])
-            else:
-                r = buf[slot, 6, i]
-                g = buf[slot, 7, i]
-                b = buf[slot, 8, i]
-            alpha = asplat[i]
-            t_i = tsplat[i]
-            w_i = alpha * t_i
-            k_i = r * dc_r + g * dc_g + b * dc_b
-            ku = k_i - u_acc
-            d_alpha = t_i * ku
-            # Gradient gate: the max_alpha clamp and (hard mode) the
-            # inside/cutoff mask kill dα→(power, opacity) flow.  In hard mode
-            # masked pixels already have alpha == 0.
+        # Pass 1: exact forward replay of the chunk from its checkpoint.
+        trans = tchk_ref[slot0 + ci, :]
+        pairs = []
+        for j in range(chunk):
+            i = ci * chunk + j
+            f, z = _load_pair(pay_ref, start + i, i < count, depth_test)
+            alpha = _alpha(f, z, px, py, bgd, cfg_alpha)[0]
+            pairs.append((i, f, z, trans))
+            trans = trans * (1.0 - alpha)
+        # Pass 2: back to front, gradients reduced over the tile's pixels.
+        for i, f, z, t_i in reversed(pairs):
+            alpha, dx, dy, qx, qy = _alpha(f, z, px, py, bgd, cfg_alpha)
+            kk = f[6] * dc_r + f[7] * dc_g + f[8] * dc_b
+            ku = kk - u
+            u = u + alpha * ku
             active = alpha < max_alpha
             if not soft_cutoff:
                 active = active & (alpha > 0.0)
-            ga = jnp.where(active, d_alpha, 0.0)
-            dp2 = -2.0 * ga * alpha  # 2·d_power, folded once
-            s1v = dp2 * si_f
-
-            def red(v):
-                return jnp.sum(v, axis=0, keepdims=True)
-
-            r6 = (
-                red(dp2), red(s1v), red(s1v * si_f),
-                red(dc_r * w_i), red(dc_g * w_i), red(dc_b * w_i),
+            ga = jnp.where(active, t_i * ku, 0.0)  # dL/dα, clamp-gated
+            w = alpha * t_i
+            dpow = -2.0 * ga * alpha               # 2·dL/dpower
+            dqx = dpow * qx
+            dqy = dpow * qy
+            s_qx = jnp.sum(dqx)
+            s_qy = jnp.sum(dqy)
+            grads = (
+                -(f[2] * s_qx + f[4] * s_qy),      # cx
+                -(f[3] * s_qx + f[5] * s_qy),      # cy
+                jnp.sum(dqx * dx),                 # ax
+                jnp.sum(dqx * dy),                 # ay
+                jnp.sum(dqy * dx),                 # bx
+                jnp.sum(dqy * dy),                 # by
+                jnp.sum(dc_r * w),                 # r
+                jnp.sum(dc_g * w),                 # g
+                jnp.sum(dc_b * w),                 # b
+                # dα/dop = α/op where unclamped; masked pairs have α ≡ 0
+                jnp.sum(ga * alpha) / jnp.maximum(f[9], 1e-20),  # opacity
             )
-            return u_acc + alpha * ku, r6
+            vec = jnp.zeros((G_ROWS,), jnp.float32)
+            for r, g in enumerate(grads):
+                vec = jnp.where(row == r, g, vec)
+            plt.store(dpair_ref.at[start + i, :], vec, mask=(row < 10) & (i < count))
+        return u
 
-        u_acc = jax.lax.fori_loop(0, chunk // GUNROLL, splat_body, u_acc)
+    jax.lax.fori_loop(0, nused, body, -d_a)
 
-        # ---- chunk-end: rebuild the 9 moments + one lane reduction ----
-        # Pairs sit on the sublane axis of each (chunk, 128) gmat plane; the
-        # per-pair centers arrive as lane vectors (vbuf rows 0-1, DMA'd
-        # alongside the scalar payload) and are transposed once per chunk.
-        # VPU tree-sums, NOT an MXU ones-matvec: the MXU truncates f32
-        # operands to bf16 at DEFAULT precision, corrupting the gradient
-        # sums on real silicon (caught on-chip by scripts/verify_tpu.py —
-        # interpreter-mode tests compute exact f32 and can't see it).
-        # Two stages, both transpose-free (an explicit (1,128)->(128,1)
-        # relayout of the center vectors measured ~4 ms/frame):
-        #   1. lane-reduce the S planes against TILE-LOCAL pixel weights
-        #      (u = lane's px - tile left, v's lane part vl) -> 9
-        #      tile-local moments per pair, stacked as (9, chunk) rows;
-        #   2. shift to splat-centered moments IN THE ROW DOMAIN, where the
-        #      per-pair centers already are lane vectors (vbuf rows 0-1):
-        #      dx = u - cxl with cxl = cx - 32*tx, so e.g.
-        #      Σdp2·dx² = r_uu - 2·cxl·r_u + cxl²·r_0 — pure (1, chunk) FMAs.
-        # Tile-local u, v keep every term the same magnitude as the result
-        # (|u| ≤ 32; far-off splats have |dx| ≈ |cxl|), so the shift loses
-        # no precision the direct per-pixel product kept.
-        a = gmat[0]
-        b1 = gmat[1]
-        c2 = gmat[2]
-        e = vl_row * a + b1   # v-compressed: Σ_s dp2·v = vl·S0 + S1 per lane
-        raw = jnp.stack(
-            [
-                jnp.sum(a, axis=1),                       # r0  = M0
-                jnp.sum(u_row * a, axis=1),               # ru  = Σdp2·u
-                jnp.sum(u_row * u_row * a, axis=1),       # ruu = Σdp2·u²
-                jnp.sum(e, axis=1),                       # rv  = Σdp2·v
-                jnp.sum(u_row * e, axis=1),               # ruv = Σdp2·uv
-                jnp.sum(vl_row * (e + b1) + c2, axis=1),  # rvv = Σdp2·v²
-                jnp.sum(gmat[3], axis=1),                 # Σdc_r·w
-                jnp.sum(gmat[4], axis=1),                 # Σdc_g·w
-                jnp.sum(gmat[5], axis=1),                 # Σdc_b·w
-            ]
-        )  # (9, chunk): pairs on lanes — the dbuf/center-vector domain
-        r0 = raw[0:1]
-        ru = raw[1:2]
-        ruu = raw[2:3]
-        rv = raw[3:4]
-        ruv = raw[4:5]
-        rvv = raw[5:6]
-        if packed:
-            cxv = jax.lax.bitcast_convert_type(vbuf[slot, 0:1, :], jnp.float32)
-            cyv = jax.lax.bitcast_convert_type(vbuf[slot, 1:2, :], jnp.float32)
-        else:
-            cxv = vbuf[slot, 0:1, :]
-            cyv = vbuf[slot, 1:2, :]
-        cxl = cxv - (txg * TILE)  # (1, chunk) local centers
-        cyl = cyv - (tyg * TILE)
-        t1 = ru - cxl * r0
-        t2 = rv - cyl * r0
-        if packed:
-            # 8-row int32 gradient space: (Σdc_g·w, Σdc_b·w) bf16-rounded
-            # and bit-packed into row 6 — the readback becomes ONE 8-row
-            # (single sublane-group) gather; r0 (opacity's source) and all
-            # geometry moments stay exact f32, carried as bitcast int32
-            # words (packed words must not travel as f32 — denormal flush).
-            def f2i(x):
-                return jax.lax.bitcast_convert_type(x, jnp.int32)
 
-            dbuf[oslot, 0:1, :] = f2i(t1)
-            dbuf[oslot, 1:2, :] = f2i(t2)
-            dbuf[oslot, 2:3, :] = f2i(ruu - cxl * (ru + t1))
-            dbuf[oslot, 3:4, :] = f2i(ruv - cxl * rv - cyl * t1)
-            dbuf[oslot, 4:5, :] = f2i(rvv - cyl * (rv + t2))
-            dbuf[oslot, 5:6, :] = f2i(raw[6:7])
-            dbuf[oslot, 6:7, :] = pack2(raw[7:8], raw[8:9])
-            dbuf[oslot, 7:8, :] = f2i(r0)
-        else:
-            dbuf[oslot, 0:1, :] = t1
-            dbuf[oslot, 1:2, :] = t2
-            dbuf[oslot, 2:3, :] = ruu - cxl * (ru + t1)      # Σdp2·dx²
-            dbuf[oslot, 3:4, :] = ruv - cxl * rv - cyl * t1  # Σdp2·dxdy
-            dbuf[oslot, 4:5, :] = rvv - cyl * (rv + t2)      # Σdp2·dy²
-            dbuf[oslot, 5:8, :] = raw[6:9]
-            dbuf[oslot, 8:9, :] = r0
-            dbuf[oslot, N_SUMS:C_PAD, :] = jnp.zeros(
-                (C_PAD - N_SUMS, chunk), jnp.float32
-            )
-        dma_out(oslot, ci).start()
-        return k + 1, u_acc
+def _params(cfg: RenderConfig):
+    return dict(
+        strides=(cfg.row_stride, cfg.col_stride),
+        cfg_alpha=(cfg.max_alpha, cfg.soft_cutoff, cfg.wireframe, cfg.line_px),
+    )
 
-    def cond(state):
-        return state[0] < nused
 
-    k, _ = jax.lax.while_loop(cond, body, (jnp.int32(0), -d_a))
-    # Drain outstanding gradient writes.
-    @pl.when(k >= 1)
-    def _():
-        dma_out(jax.lax.rem(k - 1, 2), nused - 1 - (k - 1)).wait()
-
-    @pl.when(k >= 2)
-    def _():
-        dma_out(jax.lax.rem(k - 2, 2), nused - 1 - (k - 2)).wait()
+def checkpoint_slots(p_pad: int, num_tiles: int, chunk: int) -> int:
+    """Rows of the transmittance-checkpoint buffer.  Tile t's chunk c uses
+    slot ``start_t // chunk + t + c``: the slots of consecutive tiles never
+    overlap (start_{t+1} ≥ start_t + count_t), and the buffer grows with
+    the pair budget, not with ``tile_capacity`` × tiles."""
+    return p_pad // chunk + num_tiles + 1
 
 
 @functools.lru_cache(maxsize=32)
-def _build_kernels(
-    nty: int, ntx: int, p_pad: int, g_pad: int, cfg: RenderConfig, interpret: bool
-):
-    """Compile-cached forward/backward pallas_call wrappers for a grid size."""
-    num_tiles = nty * ntx
-    chunk = cfg.chunk
-    packed = cfg.payload_dtype == "packed"
-    depth_test = cfg.depth_test
-    p_rows = _payload_rows(cfg)
-    g_rows = _grad_rows(cfg)
-    bgd_spec = pl.BlockSpec(
-        (1, 1, PACK_SUB, PACK_LANES),
-        lambda i, j, *_: (i, j, 0, 0),
-        memory_space=pltpu.VMEM,
-    )
-    # φ can push a capacity-capped tile's span into one extra chunk.
-    max_chunks = cfg.tile_capacity // chunk + 1
-
-    def make_fwd(checkpoint: bool):
-        out_specs = [
-            pl.BlockSpec(
-                (1, 1, 4, PACK_SUB, PACK_LANES),
-                lambda i, j, *_: (i, j, 0, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            # Full-array SMEM block: each program writes stop_ref[t]; the
-            # buffer persists across grid steps (constant block index).
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ]
-        out_shape = [
-            jax.ShapeDtypeStruct((nty, ntx, 4, PACK_SUB, PACK_LANES), jnp.float32),
-            jax.ShapeDtypeStruct((num_tiles,), jnp.int32),
-        ]
-        if checkpoint:
-            # Per-chunk transmittance checkpoints for the backward pass.
-            out_specs.append(
-                pl.BlockSpec(
-                    (1, 1, max_chunks, PACK_SUB, PACK_LANES),
-                    lambda i, j, *_: (i, j, 0, 0, 0),
-                    memory_space=pltpu.VMEM,
-                )
-            )
-            out_shape.append(
-                jax.ShapeDtypeStruct(
-                    (nty, ntx, max_chunks, PACK_SUB, PACK_LANES), jnp.float32
-                )
-            )
-        return pl.pallas_call(
-            functools.partial(
-                _fwd_kernel,
-                ntx=ntx,
-                chunk=chunk,
-                max_alpha=cfg.max_alpha,
-                soft_cutoff=cfg.soft_cutoff,
-                t_eps=cfg.transmittance_eps,
-                checkpoint=checkpoint,
-                wireframe=cfg.wireframe,
-                line_px=cfg.line_px,
-                packed=packed,
-                row_stride=cfg.row_stride,
-                col_stride=cfg.col_stride,
-                depth_test=depth_test,
-            ),
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=4,  # tile_base, tile_phi, tile_span, offsets
-                grid=(nty, ntx),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.HBM)]  # payload in HBM
-                + ([bgd_spec] if depth_test else []),
-                out_specs=out_specs,
-                scratch_shapes=[
-                    pltpu.SMEM(
-                        (2, p_rows, chunk),
-                        jnp.int32 if packed else jnp.float32,
-                    ),
-                    pltpu.SemaphoreType.DMA((2,)),
-                ],
-            ),
-            out_shape=out_shape,
-            interpret=interpret,
-        )
-
-    fwd_call = make_fwd(False)
-    fwd_chk_call = make_fwd(True)
-    bwd_call = pl.pallas_call(
+def _build_fwd(num_tiles, ntx, p_pad, cfg: RenderConfig, checkpoint, interpret):
+    out_shape = [
+        jax.ShapeDtypeStruct((num_tiles, 4, NPIX), jnp.float32),
+        jax.ShapeDtypeStruct((num_tiles,), jnp.int32),
+    ]
+    if checkpoint:
+        out_shape.append(jax.ShapeDtypeStruct(
+            (checkpoint_slots(p_pad, num_tiles, cfg.chunk), NPIX), jnp.float32
+        ))
+    return pl.pallas_call(
         functools.partial(
-            _bwd_kernel,
-            ntx=ntx,
-            chunk=chunk,
-            max_chunks=max_chunks,
-            max_alpha=cfg.max_alpha,
-            soft_cutoff=cfg.soft_cutoff,
-            packed=packed,
-            row_stride=cfg.row_stride,
-            col_stride=cfg.col_stride,
-            depth_test=depth_test,
+            _fwd_kernel, ntx=ntx, chunk=cfg.chunk,
+            t_eps=cfg.transmittance_eps, checkpoint=checkpoint,
+            depth_test=cfg.depth_test, **_params(cfg),
         ),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            # tile_base, tile_phi, tile_span, used, grad_base, offsets
-            num_scalar_prefetch=6,
-            grid=(nty, ntx),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.HBM)]  # payload
-            + ([bgd_spec] if depth_test else [])
-            + [
-                pl.BlockSpec(
-                    (1, 1, 4, PACK_SUB, PACK_LANES),
-                    lambda i, j, *_: (i, j, 0, 0, 0),
-                    memory_space=pltpu.VMEM,
-                ),  # d_out
-                pl.BlockSpec(
-                    (1, 1, max_chunks, PACK_SUB, PACK_LANES),
-                    lambda i, j, *_: (i, j, 0, 0, 0),
-                    memory_space=pltpu.VMEM,
-                ),  # tchk (fwd transmittance checkpoints)
-                pl.BlockSpec(memory_space=pltpu.HBM),  # zeros (aliased to out)
-            ],
-            out_specs=pl.BlockSpec(memory_space=pltpu.HBM),  # d_payload (grad space)
-            scratch_shapes=[
-                pltpu.SMEM(
-                    (2, p_rows, chunk), jnp.int32 if packed else jnp.float32
-                ),                                            # buf
-                pltpu.VMEM(
-                    (2, 8, chunk), jnp.int32 if packed else jnp.float32
-                ),                                            # vbuf (cx,cy rows)
-                pltpu.VMEM(
-                    (2, g_rows, chunk), jnp.int32 if packed else jnp.float32
-                ),                                            # dbuf
-                pltpu.VMEM((N_ROWS_IN, chunk, PACK_LANES), jnp.float32),  # gmat
-                pltpu.VMEM((chunk, PACK_SUB, PACK_LANES), jnp.float32),  # tsplat
-                pltpu.VMEM((chunk, PACK_SUB, PACK_LANES), jnp.float32),  # asplat
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.SemaphoreType.DMA((2,)),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct(
-            (g_rows, g_pad), jnp.int32 if packed else jnp.float32
-        ),
-        # zeros input (over [6 scalars, payload, (bgd), d_out, tchk, zeros])
-        # aliases the gradient-space output: one XLA memset pre-zeroes every
-        # chunk, so early-terminated chunks are never touched by the kernel.
-        input_output_aliases={(10 if depth_test else 9): 0},
+        grid=(num_tiles,),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
+        name="gsplat_composite_fwd",
     )
-    return fwd_call, fwd_chk_call, bwd_call
 
 
-def composite_pairs_pallas(
-    pair_payload: jnp.ndarray,
-    tile_base: jnp.ndarray,
-    tile_phi: jnp.ndarray,
-    tile_span: jnp.ndarray,
-    offsets: jnp.ndarray,
-    nty: int,
-    ntx: int,
-    config: RenderConfig,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Forward-only fused compositing over unaligned pair segments.
-
-    (Profiling/debug entry; the differentiable path is
-    :func:`composite_splats_pallas`, whose VJP needs the gradient map.)
-
-    Args:
-      pair_payload: (C_PAD, P_pad) transposed pair fields in tile-sorted
-        order (``ops/binning.py``), P_pad a multiple of 128.
-      tile_base/tile_phi/tile_span: (T,) int32 segment descriptors.
-      nty/ntx: tile grid.
-      config: static render settings (chunk/max_alpha/...).
-
-    Returns:
-      Packed tiles (nty, ntx, 4, 8, 128): premultiplied RGB + alpha, each
-      32×32 tile packed as ``row = sublane + 8·(lane//32)``, ``col = lane%32``.
-    """
-    fwd_call, _, _ = _build_kernels(
-        nty, ntx, pair_payload.shape[1], 0, config, interpret
+@functools.lru_cache(maxsize=32)
+def _build_bwd(num_tiles, ntx, p_pad, cfg: RenderConfig, interpret):
+    n_in = 8 if cfg.depth_test else 7
+    return pl.pallas_call(
+        functools.partial(
+            _bwd_kernel, ntx=ntx, chunk=cfg.chunk,
+            depth_test=cfg.depth_test, **_params(cfg),
+        ),
+        grid=(num_tiles,),
+        out_shape=jax.ShapeDtypeStruct((p_pad, G_ROWS), jnp.float32),
+        # The pre-zeroed input aliases the output: pairs the kernel never
+        # walks (early-stopped, over capacity, padding) keep zero rows.
+        input_output_aliases={n_in: 0},
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        interpret=interpret,
+        name="gsplat_composite_bwd",
     )
-    out, _ = fwd_call(tile_base, tile_phi, tile_span, offsets, pair_payload)
+
+
+def composite_pairs(
+    payload, tile_start, tile_count, offsets, ntx, config, interpret=False,
+    bg_depth=None,
+):
+    """Forward-only compositing of a prebuilt (rows, P_pad) pair payload.
+    Returns (T, 4, NPIX) premultiplied RGBA tiles (see :func:`unpack_image`)."""
+    fwd = _build_fwd(
+        tile_start.shape[0], ntx, payload.shape[1], config, False, interpret
+    )
+    bg = (bg_depth,) if config.depth_test else ()
+    out, _ = fwd(tile_start, tile_count, offsets, payload, *bg)
     return out
+
+
+def pack_depth_tiles(bg_depth: jnp.ndarray, nty: int, ntx: int) -> jnp.ndarray:
+    """(H, W) scene depth → (T, NPIX) per-tile pixel vectors, padded with
+    +inf so off-image pixels never kill anything."""
+    h, w = bg_depth.shape
+    d = jnp.pad(
+        bg_depth, ((0, nty * TILE - h), (0, ntx * TILE - w)),
+        constant_values=jnp.inf,
+    )
+    return d.reshape(nty, TILE, ntx, TILE).transpose(0, 2, 1, 3).reshape(-1, NPIX)
 
 
 def _int0(x):
@@ -953,254 +343,82 @@ def _int0(x):
     return np.zeros(x.shape, jax.dtypes.float0)
 
 
-def _pad_rows(x):
-    """(rows, P) → (C_PAD, P): append the zero rows the kernel DMAs expect
-    (8-aligned sublane slices).  Bandwidth-bound, fuses with the gather."""
-    return jnp.pad(x, ((0, C_PAD - x.shape[0]), (0, 0)))
-
-
-def _gather_payload(fields, pair_splat, config=None):
-    """(10, N) fields → (rows, P) pair payload.
-
-    Default: one 10-row gather + the zero rows the kernel DMAs expect (an
-    8+2-row sublane-group split was measured 2× SLOWER here — 35 vs 17.6 ms
-    at 2.75M duplicate-heavy queries — even though the same split wins for
-    the distinct-query gradient readback: gather cost on this chip is not a
-    simple rows×queries model, so every variant is A/B'd on silicon).
-
-    ``payload_dtype="packed"``: rows 6..9 are bf16-rounded (by
-    ``quantize_payload``) and bit-pack pairwise into rows 6=(r,g),
-    7=(b,op), so the gather runs on 8 rows — ONE gather-unit sublane group
-    instead of two (measured ~21 → ~12 ms at 2.36M queries) — and no zero
-    pad is needed (8 rows is exactly the DMA alignment unit)."""
-    if config is not None and config.payload_dtype == "packed":
-        pf = jnp.concatenate(
-            [
-                jax.lax.bitcast_convert_type(fields[0:6], jnp.int32),
-                pack2(fields[6:7], fields[7:8]),
-                pack2(fields[8:9], fields[9:10]),
-            ],
-            axis=0,
-        )
-        return pf[:, pair_splat]
-    return _pad_rows(fields[:, pair_splat])
-
-
-def pack_depth_packed(bg_depth: jnp.ndarray, nty: int, ntx: int) -> jnp.ndarray:
-    """(H, W) scene depth → (nty, ntx, 8, 128) packed-pixel tiles (the
-    kernels' register layout: row = sublane + 8·(lane//32), col = lane%32),
-    padded with +inf so off-image pixels never kill anything."""
-    h, w = bg_depth.shape
-    d = jnp.pad(
-        bg_depth,
-        ((0, nty * TILE - h), (0, ntx * TILE - w)),
-        constant_values=jnp.inf,
-    )
-    x = d.reshape(nty, PACK_LANES // TILE, PACK_SUB, ntx, TILE)
-    return x.transpose(0, 3, 2, 1, 4).reshape(nty, ntx, PACK_SUB, PACK_LANES)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(13, 14, 15, 16))
-def composite_splats_pallas(
-    fields: jnp.ndarray,        # (10|11, N) f32 — payload rows (11 rows
-                                # with row 10 = view-z when config.depth_test)
-    pair_splat: jnp.ndarray,    # (P_pad,) int32 — tile-sorted pair → column
-    tile_base: jnp.ndarray,     # (T,) int32
-    tile_phi: jnp.ndarray,      # (T,) int32
-    tile_span: jnp.ndarray,     # (T,) int32
-    grad_base: jnp.ndarray,     # (T,) int32
-    dest_of_exp: jnp.ndarray,   # (budget,) int32 — exp pair → gradient slot
-    exp_offsets: jnp.ndarray,   # (N,) int32 — indexed by depth rank
-    exp_counts: jnp.ndarray,    # (N,) int32 — indexed by depth rank
-    exp_rank: jnp.ndarray,      # (budget,) int32 — depth rank of exp pair j
-                                # (−1 past the frame's real pair count)
-    offsets: jnp.ndarray,       # (2,) int32 — global tile (row, col) offset
-    order: jnp.ndarray = None,  # (N,) int32 depth permutation, or None if
-                                # ``fields`` is already depth-sorted
-    bg_depth: jnp.ndarray = None,  # (nty, ntx, 8, 128) packed scene depth
-                                # (pack_depth_packed) when config.depth_test
-    nty: int = 0,
-    ntx: int = 0,
-    config: RenderConfig = None,
+@functools.partial(jax.custom_vjp, nondiff_argnums=(6, 7, 8))
+def composite_splats(
+    fields: jnp.ndarray,       # (10|11, N) f32 payload rows (row 10 = view-z
+                               # when config.depth_test)
+    pair_splat: jnp.ndarray,   # (P_pad,) int32 — tile-sorted pair → column
+    tile_start: jnp.ndarray,   # (T,) int32
+    tile_count: jnp.ndarray,   # (T,) int32
+    offsets: jnp.ndarray,      # (2,) int32 — global tile (row, col) offset
+    bg_depth: jnp.ndarray,     # (T, NPIX) scene depth, or None
+    ntx: int,
+    config: RenderConfig,
     interpret: bool = False,
 ) -> jnp.ndarray:
     """Differentiable fused rasterization tail: payload gather + compositing.
 
-    Forward: one 16-row gather builds the (C_PAD, P_pad) pair payload from
-    the projected field matrix, then the fused kernel composites it.  The
-    VJP reads the backward kernel's gradient address space through
-    ``dest_of_exp`` (an 8-row + 2-row gather split at the sublane-group
-    boundary — see ``N_SUMS``) and segment-reduces per-splat with the MXU
-    one-hot kernel (``ops/pallas/segsum.py``) — ~10× faster than XLA's
-    scatter-add transpose.  Gradients flow to ``fields`` only.
-
-    ``order``: when given, ``fields`` is in storage order, ``pair_splat``
-    holds storage indices, and the VJP returns ``d_fields`` in storage order
-    (exp_offsets/exp_counts/exp_rank stay rank-indexed — see
-    ``ops/binning.py``).
-
-    When not differentiated, XLA dead-code-eliminates the gradient-map
-    arguments (and their binning cost) automatically.
-    """
-    payload = _gather_payload(fields, pair_splat, config)
-    fwd_call, _, _ = _build_kernels(
-        nty, ntx, payload.shape[1], 0, config, interpret
+    Returns (T, 4, NPIX) premultiplied RGBA tiles.  Gradients flow to
+    ``fields`` only; the VJP sums the backward kernel's per-pair rows per
+    splat column with ``segment_sum`` over ``pair_splat``, so ``fields`` may
+    be in any column order (depth-sorted or storage order)."""
+    return composite_pairs(
+        fields[:, pair_splat], tile_start, tile_count, offsets, ntx, config,
+        interpret, bg_depth,
     )
-    bg = (bg_depth,) if config.depth_test else ()
-    out, _ = fwd_call(tile_base, tile_phi, tile_span, offsets, payload, *bg)
-    return out
 
 
-def _csp_fwd(
-    fields, pair_splat, tile_base, tile_phi, tile_span, grad_base,
-    dest_of_exp, exp_offsets, exp_counts, exp_rank, offsets, order, bg_depth,
-    nty, ntx, config, interpret,
-):
+def _cs_fwd(fields, pair_splat, tile_start, tile_count, offsets, bg_depth,
+            ntx, config, interpret):
     if config.wireframe:
         raise ValueError(
             "wireframe mode is forward-only (the band test has no useful "
-            "gradient); render through render_wireframe / composite_pairs_pallas"
+            "gradient); render through render_wireframe"
         )
-    from ..binning import grad_pad_size  # local import: avoid cycle
-
-    payload = _gather_payload(fields, pair_splat, config)
-    g_pad = grad_pad_size(dest_of_exp.shape[0], nty * ntx, config.chunk)
-    _, fwd_chk_call, _ = _build_kernels(
-        nty, ntx, payload.shape[1], g_pad, config, interpret
+    payload = fields[:, pair_splat]  # (rows, P_pad), tile-sorted
+    fwd = _build_fwd(
+        tile_start.shape[0], ntx, payload.shape[1], config, True, interpret
     )
     bg = (bg_depth,) if config.depth_test else ()
-    out, used, tchk = fwd_chk_call(
-        tile_base, tile_phi, tile_span, offsets, payload, *bg
-    )
-    res = (
-        fields, payload, tile_base, tile_phi, tile_span, used, grad_base,
-        dest_of_exp, exp_offsets, exp_counts, exp_rank, offsets, tchk,
-        pair_splat, order, bg_depth,
-    )
+    out, stop, tchk = fwd(tile_start, tile_count, offsets, payload, *bg)
+    res = (fields, payload, pair_splat, tile_start, tile_count, offsets,
+           bg_depth, stop, tchk)
     return out, res
 
 
-def _csp_bwd(nty, ntx, config, interpret, res, g):
-    (
-        fields, payload, tile_base, tile_phi, tile_span, used, grad_base,
-        dest_of_exp, exp_offsets, exp_counts, exp_rank, offsets, tchk,
-        pair_splat, order, bg_depth,
-    ) = res
-    from ..binning import grad_pad_size
-
-    g_pad = grad_pad_size(dest_of_exp.shape[0], nty * ntx, config.chunk)
-    _, _, bwd_call = _build_kernels(
-        nty, ntx, payload.shape[1], g_pad, config, interpret
-    )
-    g_dt = jnp.int32 if config.payload_dtype == "packed" else jnp.float32
+def _cs_bwd(ntx, config, interpret, res, g):
+    (fields, payload, pair_splat, tile_start, tile_count, offsets, bg_depth,
+     stop, tchk) = res
+    p_pad = payload.shape[1]
+    bwd = _build_bwd(tile_start.shape[0], ntx, p_pad, config, interpret)
     bg = (bg_depth,) if config.depth_test else ()
-    d_grad_space = bwd_call(
-        tile_base, tile_phi, tile_span, used, grad_base, offsets,
-        payload, *bg, g, tchk, jnp.zeros((_grad_rows(config), g_pad), g_dt),
+    dpair = bwd(
+        tile_start, tile_count, stop, offsets, payload, *bg, g, tchk,
+        jnp.zeros((p_pad, G_ROWS), jnp.float32),
     )
-    # gradient space → expansion order.  Dropped pairs carry ~j (negative):
-    # decode to a spread in-range dummy query (duplicate-query hotspots
-    # serialize TPU gathers) and mask the gathered garbage to exact zeros
-    # (``where`` keeps any NaN in unwritten tail columns out of the sum).
-    #
-    # The 9 moment rows move in an 8-row + 2-row gather split exactly at the
-    # sublane-group boundary: the gather unit fetches sublanes in groups of
-    # 8, so one 9-row gather fetches 16 (measured 42 ms vs 36 ms for this
-    # split at 3M queries — scripts/profile_gather5.py).  The queries (not
-    # the gathered matrices) are padded to the segsum chunk multiple, so the
-    # gathers emit kernel-ready arrays with no ~100 MB pad copy.
-    budget = dest_of_exp.shape[0]
-    p_q = segsum_pad_pairs(budget)
-    keep = dest_of_exp >= 0
-    q = jnp.where(keep, dest_of_exp, ~dest_of_exp)
-    rank_f = exp_rank.astype(jnp.float32)
-    if p_q != budget:
-        pad = p_q - budget
-        q = jnp.concatenate([q, jnp.zeros((pad,), jnp.int32)])
-        keep = jnp.concatenate([keep, jnp.zeros((pad,), bool)])
-        rank_f = jnp.concatenate([rank_f, jnp.full((pad,), -1.0, jnp.float32)])
-    if config.payload_dtype == "packed":
-        # 8-row INT32 gradient space: ONE single-sublane-group gather; the
-        # integer select masks dropped columns (bits 0 → 0.0 everywhere),
-        # then rows bitcast back to f32 and row 6 unpacks to
-        # (Σdc_g·w, Σdc_b·w); row 7 is r0 = Σdp2.
-        d8i = jnp.where(keep[None, :], d_grad_space[0:8][:, q], 0)
-        fr = jax.lax.bitcast_convert_type(d8i, jnp.float32)
-        cg, cb = unpack2(d8i[6:7])
-        d8 = jnp.concatenate([fr[0:6], cg, cb], axis=0)
-        aux = jnp.concatenate([fr[7:8], rank_f[None, :]], axis=0)
-    else:
-        d8 = jnp.where(keep[None, :], d_grad_space[0:8][:, q], 0.0)
-        # Rows 8:10 = [Σdp2; zero] — the zero row is overwritten by the depth
-        # rank, which rides to the segsum kernel as a payload row (f32-exact).
-        daux = jnp.where(keep[None, :], d_grad_space[8:10][:, q], 0.0)
-        aux = jnp.concatenate([daux[0:1], rank_f[None, :]], axis=0)
-    # Per-splat raw-moment sums (9, N): rows 0..7 = d8 sums, row 8 = Σdp2.
-    m = segsum_by_splat(
-        d8, aux, exp_offsets, exp_counts, interpret, order=order
-    )
-    # Quad-basis combine, once per splat (linear in the moments with
-    # per-splat coefficients, so it commutes with the pair summation the
-    # segment reduce just performed).  ``fields`` is in the same order as
-    # the segsum output (depth-rank order, or storage order under ``order``).
-    u_x, u_y = m[0], m[1]
-    t_xx, t_xy, t_yy = m[2], m[3], m[4]
-    s_dp2 = m[8]
-    ax, ay = fields[2], fields[3]
-    bx, by = fields[4], fields[5]
-    op = fields[9]
-    #   Σd_qx    = ax·U_x + ay·U_y,       Σd_qy    = bx·U_x + by·U_y
-    #   Σd_qx·dx = ax·T_xx + ay·T_xy, ... (T = dp2-weighted moments)
-    s_dqx = ax * u_x + ay * u_y
-    s_dqy = bx * u_x + by * u_y
-    # dop = Σ ga·α / op, and Σga·α = −Σdp2/2.  exp(−power) = α/op where
-    # unclamped; binning culls opacity < 1/255 so the divide is safe for
-    # real pairs, and masked/sentinel pairs (op=0) have α ≡ 0.
-    d_fields = jnp.stack(
-        [
-            -(ax * s_dqx + bx * s_dqy),
-            -(ay * s_dqx + by * s_dqy),
-            ax * t_xx + ay * t_xy,
-            ax * t_xy + ay * t_yy,
-            bx * t_xx + by * t_xy,
-            bx * t_xy + by * t_yy,
-            m[5],
-            m[6],
-            m[7],
-            (-0.5) * s_dp2 * (1.0 / jnp.maximum(op, 1e-20)),
-        ],
-        axis=0,
-    )
-    if fields.shape[0] > 10:
-        # depth_test payload carries the view-z row — the z-test is a hard
-        # mask, so no gradient flows to it (matching the other hard masks).
-        d_fields = jnp.concatenate(
-            [d_fields, jnp.zeros((fields.shape[0] - 10, d_fields.shape[1]))]
-        )
+    # Per-splat sums of the per-pair rows.  (In-kernel atomic adds instead
+    # measured 35.04 vs 28.55 ms for the whole 1M/1080p forward+backward
+    # on an H100 at 400 W.)
+    d10 = jax.ops.segment_sum(
+        dpair[:, :10], pair_splat, num_segments=fields.shape[1]
+    ).T
+    # The depth row (view-z) is a hard mask: no gradient, like the others.
+    d_fields = jnp.pad(d10, ((0, fields.shape[0] - 10), (0, 0)))
     return (
         d_fields,
         _int0(pair_splat),
-        _int0(tile_base),
-        _int0(tile_phi),
-        _int0(tile_span),
-        _int0(grad_base),
-        _int0(dest_of_exp),
-        _int0(exp_offsets),
-        _int0(exp_counts),
-        _int0(exp_rank),
+        _int0(tile_start),
+        _int0(tile_count),
         _int0(offsets),
-        None if order is None else _int0(order),
         None if bg_depth is None else jnp.zeros_like(bg_depth),
     )
 
 
-composite_splats_pallas.defvjp(_csp_fwd, _csp_bwd)
+composite_splats.defvjp(_cs_fwd, _cs_bwd)
 
 
-def unpack_image(packed: jnp.ndarray, height: int, width: int) -> jnp.ndarray:
-    """Packed tiles (nty, ntx, 4, 8, 128) → (H, W, 4) image."""
-    nty, ntx = packed.shape[0], packed.shape[1]
-    x = packed.reshape(nty, ntx, 4, PACK_SUB, PACK_LANES // TILE, TILE)
-    x = x.transpose(2, 0, 4, 3, 1, 5)  # (4, nty, grp, sub, ntx, col)
-    x = x.reshape(4, nty * TILE, ntx * TILE)
-    return x[:, :height, :width].transpose(1, 2, 0)
+def unpack_image(tiles: jnp.ndarray, nty: int, ntx: int, height: int,
+                 width: int) -> jnp.ndarray:
+    """(T, 4, NPIX) tiles → (H, W, 4) image."""
+    x = tiles.reshape(nty, ntx, 4, TILE, TILE).transpose(0, 3, 1, 4, 2)
+    return x.reshape(nty * TILE, ntx * TILE, 4)[:height, :width]

@@ -1,18 +1,16 @@
 """Column permutation with a gather-only custom VJP.
 
-``x[:, perm]`` under plain autodiff transposes to a multi-row scatter-add
-(~100 ms at 1M columns on TPU — scatters process ~one index per cycle).  For
-a *permutation* the adjoint is itself a permutation: ``dx = g[:, inv_perm]``
-— the inverse index is built by sorting the permutation back against iota
-(~40% cheaper than the equivalent scatter), followed by one multi-row
-gather.  Used for the global depth sort (``ops/rasterize_tiles.sort_by_depth``).
+``x[:, perm]`` under plain autodiff transposes to a multi-row scatter-add.
+For a *permutation* the adjoint is itself a permutation: ``dx = g[:, inv]``
+— the inverse index is built by sorting the permutation back against iota,
+followed by one multi-row gather.  Used for the global depth sort
+(``ops/rasterize_tiles.sort_by_depth``).
 
 ``diff_rows`` (static) declares that only rows ``< diff_rows`` of the output
 ever receive non-zero cotangents (for the splat pipeline: rows 0..9 feed the
 differentiable compositor; rows 10..15 — depth key, validity, bbox — feed
-only the non-differentiable sort/binning).  The backward gather then touches
-only those rows: the TPU gather unit is element-sequential (cost = rows ×
-queries), so this cuts the adjoint's cost proportionally.
+only the non-differentiable sort/binning), so the backward gather touches
+only those rows.
 """
 
 from __future__ import annotations
@@ -28,27 +26,14 @@ def _int0(x):
     return np.zeros(x.shape, jax.dtypes.float0)
 
 
-def _grouped_take(x, idx):
-    """``x[:, idx]`` in 8-row passes: the TPU gather unit fetches sublanes in
-    groups of 8, so a >8-row gather pays for 16 sublanes per query — two
-    1-group passes are measurably cheaper (same split as the gradient-space
-    readback, ``ops/pallas/composite.py`` ``N_SUMS``)."""
-    r = x.shape[0]
-    if r <= 8:
-        return x[:, idx]
-    return jnp.concatenate(
-        [x[g : min(g + 8, r)][:, idx] for g in range(0, r, 8)], axis=0
-    )
-
-
 @functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
 def permute_cols(x: jnp.ndarray, perm: jnp.ndarray, diff_rows: int = None) -> jnp.ndarray:
     """``x[:, perm]`` where ``perm`` is a permutation of ``arange(x.shape[1])``."""
-    return _grouped_take(x, perm)
+    return x[:, perm]
 
 
 def _fwd(x, perm, diff_rows):
-    return _grouped_take(x, perm), perm
+    return x[:, perm], perm
 
 
 def _bwd(diff_rows, perm, g):
@@ -56,8 +41,6 @@ def _bwd(diff_rows, perm, g):
     _, inv = jax.lax.sort(
         (perm, jnp.arange(n, dtype=perm.dtype)), num_keys=1
     )
-    # NOTE: no _grouped_take here — a 10-row combined gather measured 6.5 ms
-    # vs 9.6 ms for the 8+2 split at 1M queries (full-frame A/B on chip).
     if diff_rows is not None and diff_rows < g.shape[0]:
         d = jnp.pad(g[:diff_rows][:, inv], ((0, g.shape[0] - diff_rows), (0, 0)))
     else:

@@ -1,12 +1,12 @@
 """Per-splat projection: world splats → screen-space 2D Gaussians.
 
-TPU-native replacement for the reference's main vertex shader
+The replacement for the reference's main vertex shader
 (``gsplat_plugin/shaders/GSplatShaderSource.h:190-288``): one vectorised
-VPU pass over all splats instead of a per-(instance, vertex) GL shader.
+pass over all splats instead of a per-(instance, vertex) GL shader.
 
 **Layout-first design.**  All math runs on (N,)-component vectors (splats on
-the lane axis — dense TPU tiling, every elementwise chain fuses into one
-XLA kernel) and the result is a single ``(16, N)`` field matrix that *is*
+the contiguous axis — every elementwise chain fuses into one XLA
+kernel) and the result is a single ``(16, N)`` field matrix that *is*
 the compositor payload:
 
   row  0..1   cx, cy        pixel-space center (x right, y down)

@@ -1,6 +1,6 @@
 """Quaternion → rotation/scale matrix ops.
 
-TPU-native re-implementation of the reference GLSL
+Re-implementation of the reference GLSL
 ``CalcMatrixFromRotationScale`` (``gsplat_plugin/shaders/GSplatShaderCoreLib.h:10-27``).
 
 Conventions (faithful to the reference, which stores quaternions in the

@@ -1,6 +1,6 @@
 """Geometric queries on splat clusters.
 
-TPU-native equivalents of the reference primitive's geometry methods:
+Equivalents of the reference primitive's geometry methods:
 
 * ``GEO_PrimGsplat::getBBox``      (``gsplat_plugin/src/GEO_GSplat.C:327-336``)
   → :meth:`gsplat_tpu.models.splats.GaussianSplats.bbox`

@@ -1,11 +1,13 @@
 """Tiled rasterizer (pure-XLA backend).
 
-The algorithmic twin of the Pallas TPU kernel (``ops/pallas/composite.py``)
+The algorithmic twin of the fused GPU kernels (``ops/pallas/composite.py``)
 expressed in plain ``jnp``: project → global depth sort → tile binning →
 per-tile front-to-back compositing, differentiable end-to-end via XLA
-autodiff.  Runs on any backend (CPU tests, TPU fallback) and serves as the
+autodiff.  It is the CPU path (``backend="auto"`` on the CPU) and the
 mid-level oracle between the O(N·H·W) reference rasterizer and the fused
-Pallas kernels.
+kernels.  It scans all ``tile_capacity`` steps for every tile with no early
+stop, and its reverse mode keeps every step's residuals, so forward +
+backward at 1080p does not fit a GPU's memory.
 
 Pipeline parity contract: identical math to ``rasterize_ref.composite_reference``
 (same per-pixel alpha, same global compositing order) — images must match to
@@ -34,8 +36,7 @@ def sort_by_depth(p: ProjectedSplats, n_rows: int = 14) -> ProjectedSplats:
     inverse-permutation gather, not a scatter-add.  Only the ``n_rows``
     live rows are permuted (14 by default; 15 keeps the view-z row for
     depth-tested compositing; the remainder are structural zeros,
-    ``ops/projection.py``) — with the 8-row gather split that is one full +
-    one partial sublane-group pass instead of two full ones."""
+    ``ops/projection.py``)."""
     order = jnp.argsort(p.fields[ROW_DEPTH])
     live = permute_cols(p.fields[:n_rows], order, 10)
     return ProjectedSplats(
@@ -208,7 +209,7 @@ def render_tiles(
     if order is None:
         p = sort_by_depth(p, n_rows=n_rows)
     else:
-        # Same row + pad shape as sort_by_depth (8 + partial gather split).
+        # Same row + pad shape as sort_by_depth.
         p = ProjectedSplats(
             fields=jnp.pad(
                 permute_cols(p.fields[:n_rows], order, 10),

@@ -1,6 +1,6 @@
 """Spherical-harmonics color evaluation, degrees 0–3.
 
-TPU-native re-implementation of the reference GLSL ``ShadeSH``
+Re-implementation of the reference GLSL ``ShadeSH``
 (``gsplat_plugin/shaders/GSplatShaderCoreLib.h:101-181``) with the exact band
 constants.  Differentiable w.r.t. both the SH coefficients and the view
 direction.

@@ -1,6 +1,6 @@
 """Wireframe debug rendering: splat quad outlines.
 
-TPU analogue of the reference's wireframe path — 8 verts per splat forming a
+The analogue of the reference's wireframe path — 8 verts per splat forming a
 line quad at the ±2 footprint extent in the (v1, v2) eigen basis, drawn flat
 in the splat's base color (``gsplat_plugin/src/GR_GSplat.C:376-421``,
 ``shaders/GSplatShaderSource.h:22-110``).  Here: a per-pixel band test on the
@@ -11,8 +11,10 @@ Backends:
   * ``"pallas"`` — the fused compositing kernel in wireframe mode (an opaque
     band test replaces the Gaussian falloff; front-to-back + early stop =
     nearest-splat-wins) riding the same binning/sort as the beauty pass —
-    interactive at reference scale.
-  * ``"reference"`` — O(N·H·W) per-pixel scan (the debug oracle).
+    interactive at reference scale.  ``"auto"`` picks it on a GPU.
+  * ``"reference"`` — O(N·H·W) per-pixel scan (the debug oracle); ``"auto"``
+    picks it on the CPU, where the beauty pass would use ``tiles`` (the
+    ``tiles`` compositor has no band test).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..ops.projection import ROW_HX, ROW_HY, ROW_OP, ROW_VALID, project_splats
 from ..ops.rasterize_ref import sanitize_projected
 from ..ops.rasterize_tiles import sort_by_depth
 from ..utils.config import RenderConfig
+from ..utils.platform import resolve_backend
 
 
 def render_wireframe(
@@ -41,11 +44,13 @@ def render_wireframe(
     interpret: bool = False,
 ) -> jnp.ndarray:
     """Render quad outlines.  Returns (H, W, 4); alpha 1 where a line covers."""
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() != "cpu" else "reference"
-    if backend == "pallas":
+    backend = resolve_backend(backend)
+    if backend == "tiles":
+        backend = "reference"
+    if backend in ("pallas", "pallas_interpret"):
         return _wireframe_pallas(
-            splats, camera, config, line_px, background, interpret
+            splats, camera, config, line_px, background,
+            interpret or backend == "pallas_interpret",
         )
     if backend != "reference":
         raise ValueError(f"unknown wireframe backend {backend!r}")
@@ -92,17 +97,15 @@ def _wireframe_pallas(
     an opaque band hit saturates the pixel, so later (farther) splats
     contribute exactly zero."""
     from .binning import bin_splats, tile_grid
-    from .pallas.composite import _gather_payload, composite_pairs_pallas, unpack_image
+    from .pallas.composite import composite_pairs, unpack_image
 
     if config.tile_h != 32 or config.tile_w != 32:
         raise ValueError("pallas backend requires tile_h == tile_w == 32")
     # Wireframe skips quantize_payload (it rewrites opacity to the validity
-    # flag), so the packed-payload policy would bit-truncate unrounded
-    # colors — force the plain f32 payload here (both wireframe backends
-    # run unquantized, so parity is unaffected).
+    # flag): both wireframe backends run on the unquantized f32 payload.
     cfg = dataclasses.replace(
         config, wireframe=True, line_px=float(line_px),
-        payload_dtype="float32",
+        payload_dtype="float32", depth_test=False,
     )
     p = sanitize_projected(project_splats(splats, camera, 0))
     f = p.fields
@@ -113,22 +116,18 @@ def _wireframe_pallas(
     f = f.at[ROW_HX].add(line_px)
     f = f.at[ROW_HY].add(line_px)
     p = sort_by_depth(type(p)(fields=f))
-    binned = bin_splats(
-        p, camera.width, camera.height, cfg, with_tiles=False, with_grad_map=False
-    )
+    binned = bin_splats(p, camera.width, camera.height, cfg, with_tiles=False)
     nty, ntx = tile_grid(camera.width, camera.height, cfg.tile_h, cfg.tile_w)
-    packed = composite_pairs_pallas(
-        _gather_payload(p.fields[:10], binned.pair_splat),
-        binned.tile_base,
-        binned.tile_phi,
-        binned.tile_span,
+    tiles = composite_pairs(
+        p.fields[:10, binned.pair_splat],
+        binned.tile_start,
+        binned.tile_count,
         jnp.zeros((2,), jnp.int32),
-        nty,
         ntx,
         cfg,
         interpret,
     )
-    img = unpack_image(packed, camera.height, camera.width)
+    img = unpack_image(tiles, nty, ntx, camera.height, camera.width)
     if background is not None:
         bg = jnp.asarray(background, jnp.float32)
         covered = img[..., 3:4] > 0.5
@@ -159,8 +158,7 @@ def render_wire_over(
 
     Returns (H, W, 4) premultiplied RGBA.
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() != "cpu" else "tiles"
+    backend = resolve_backend(backend)
     wire_backend = "pallas" if backend in ("pallas", "pallas_interpret") else "reference"
     from ..render import render  # local import: render imports wireframe's siblings
 

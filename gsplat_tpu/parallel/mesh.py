@@ -1,11 +1,12 @@
 """Device mesh + multi-host initialization helpers.
 
 The reference is strictly single-process/single-GPU (SURVEY.md §2
-"Distributed/parallelism inventory — explicitly absent"); this layer is
-designed from scratch for TPU: a named-axis ``jax.sharding.Mesh`` over which
-splats are sharded for projection/backward ("data"/model axis) and image tile
-rows are sharded for compositing (the rasterizer's analogue of sequence/
-context parallelism), with camera-batch data parallelism on top for training.
+"Distributed/parallelism inventory — explicitly absent").  Here a named-axis
+``jax.sharding.Mesh`` shards splats for projection/backward and image tile
+rows for compositing (the rasterizer's analogue of sequence/context
+parallelism), with camera-batch data parallelism on top for training.  The
+mesh follows the algorithm only: the GPUs of one host reach each other all
+to all over NVLink, so no device order is preferred.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import jax
 import numpy as np
 from jax.sharding import Mesh
 
-SPLAT_AXIS = "sp"   # splats + image tile rows (gather/psum_scatter rides ICI)
-BATCH_AXIS = "dp"   # camera batch (gradient all-reduce; DCN-friendly)
+SPLAT_AXIS = "sp"   # splats + image tile rows (all_gather / psum_scatter)
+BATCH_AXIS = "dp"   # camera batch (gradient all-reduce)
 
 
 def initialize_distributed(

@@ -1,11 +1,11 @@
 """Multi-device sharded rendering (SPMD over a named mesh).
 
-Designed from scratch for TPU (the reference has no distribution layer —
-SURVEY.md §5 "Distributed communication backend: absent").  Decomposition:
+The reference has no distribution layer (SURVEY.md §5 "Distributed
+communication backend: absent").  Decomposition:
 
 * **Splats sharded** over the ``sp`` axis: each device projects N/d splats
   (the heavy per-primitive math + its backward stay fully sharded).
-* **all_gather (ICI)** of the compact projected payload (~44 B/splat) — the
+* **all_gather** of the compact projected payload (~44 B/splat) — the
   rasterizer's analogue of a sequence-parallel ring exchange: every device
   needs every visible splat's screen footprint, but only the *projected*
   form, never the raw parameters.
@@ -20,7 +20,7 @@ SURVEY.md §5 "Distributed communication backend: absent").  Decomposition:
   the rest of the backward by the XLA scheduler.
 
 Works on any backend (tests run on an 8-device virtual CPU mesh with the
-pure-XLA tile compositor; TPU uses the fused Pallas kernels).
+pure-XLA tile compositor; GPUs use the fused Pallas kernels).
 """
 
 from __future__ import annotations
@@ -36,12 +36,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..models.camera import Camera
 from ..models.splats import GaussianSplats
 from ..ops.binning import (
-    _backend_supports_callbacks,
+    _host_callbacks_ok,
     bin_splats,
     tile_grid,
     warn_if_dropped,
 )
-from ..ops.pallas.composite import composite_splats_pallas, unpack_image
+from ..ops.pallas.composite import composite_splats, unpack_image
 from ..ops.projection import (
     ROW_CX,
     ROW_CY,
@@ -58,6 +58,7 @@ from ..ops.rasterize_tiles import (
     sort_by_depth,
 )
 from ..utils.config import RenderConfig
+from ..utils.platform import resolve_backend
 from .mesh import SPLAT_AXIS, pad_to_multiple
 
 
@@ -243,7 +244,6 @@ def _render_strip(
     binned = bin_splats(
         p, width, strip_h, config, row_offset=row_offset,
         with_tiles=(backend != "pallas"),
-        with_grad_map=(backend == "pallas"),
         order=order,
         budget=config.strip_pair_budget(p.count, n_strips),
         col_offset=col_offset,
@@ -251,29 +251,22 @@ def _render_strip(
     warn_if_dropped(binned, config)
     nty, ntx = tile_grid(width, strip_h, config.tile_h, config.tile_w)
     if backend == "pallas":
-        packed = composite_splats_pallas(
+        tiles = composite_splats(
             p.fields[:10],
             binned.pair_splat,
-            binned.tile_base,
-            binned.tile_phi,
-            binned.tile_span,
-            binned.grad_base,
-            binned.dest_of_exp,
-            binned.exp_offsets,
-            binned.exp_counts,
-            binned.exp_rank,
+            binned.tile_start,
+            binned.tile_count,
             jnp.stack([
                 jnp.asarray(row_offset, jnp.int32),
                 jnp.asarray(col_offset, jnp.int32),
             ]),
-            order,
             None,
-            nty,
             ntx,
             config,
             interpret,
         )
-        return unpack_image(packed, strip_h, width), binned.dropped_pairs
+        image = unpack_image(tiles, nty, ntx, strip_h, width)
+        return image, binned.dropped_pairs
     lists = build_tile_lists(binned, nty * ntx, config.tile_capacity, p.count)
     image = composite_tile_lists(
         lists, p.fields, width, strip_h, config, row_offset=row_offset,
@@ -302,7 +295,7 @@ def exchange_projected(
     * ``strip_exchange_factor > 0`` — sub-O(N)-per-device ``all_to_all`` of
       per-strip compacted buckets (overflow drops columns, warned);
     * ``payload_dtype == "bfloat16"`` — ``all_gather`` with the 10 payload
-      rows shipped as real bf16 over ICI (half the collective bytes;
+      rows shipped as real bf16 (half the collective bytes;
       quantization happened per-shard already, so the upcast is exact);
     * default — fp32 ``all_gather`` of the full field matrix.
 
@@ -320,15 +313,11 @@ def exchange_projected(
         full, ex_dropped = _strip_exchange(
             p.fields, width, strip_h, d, bucket, axis
         )
-        if (
-            config.warn_on_drop
-            and _backend_supports_callbacks()
-            and jax.process_count() == 1
-        ):
+        if config.warn_on_drop and _host_callbacks_ok():
             jax.debug.callback(_warn_exchange_dropped_cb, ex_dropped)
     elif config.payload_dtype == "bfloat16":
         # The 10 payload rows are already bf16-representable — ship them
-        # over ICI as real bf16 (half the collective bytes and half the
+        # as real bf16 (half the collective bytes and half the
         # replicated-buffer HBM; upcast is exact).  Geometry rows (depth
         # key, validity, footprint) stay fp32.
         pay = jax.lax.all_gather(
@@ -417,12 +406,11 @@ def render_sharded(
     """
     if mesh is None:
         raise ValueError("render_sharded requires a mesh")
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() != "cpu" else "tiles"
+    backend = resolve_backend(backend)
     # "pallas_interpret": the production pallas strip path executed through
     # the Pallas interpreter — runs on the CPU mesh, so the sharded-pallas
-    # combination (nonzero row_offset, storage-order VJP, per-strip budgets)
-    # is testable without a pod.
+    # combination (nonzero row/col offsets, per-strip budgets) is testable
+    # without a multi-GPU host.
     interpret = backend == "pallas_interpret"
     if interpret:
         backend = "pallas"

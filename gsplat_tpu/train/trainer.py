@@ -24,6 +24,7 @@ from ..parallel.mesh import BATCH_AXIS, SPLAT_AXIS, pad_to_multiple
 from ..parallel.render_sharded import local_strip_render
 from ..render import render
 from ..utils.config import RenderConfig
+from ..utils.platform import resolve_backend
 from .loss import l1_loss, render_loss, ssim_strip
 from .params import SplatParams, splats_from_params
 
@@ -121,8 +122,7 @@ def make_sharded_train_step(
     camera matrices and targets is (B, H_pad, W, 3); B divides dp, H_pad =
     rows padded to dp·sp·tile_h.
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() != "cpu" else "tiles"
+    backend = resolve_backend(backend)
     interpret = backend == "pallas_interpret"
     if interpret:
         backend = "pallas"

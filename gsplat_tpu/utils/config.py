@@ -30,10 +30,9 @@ class RenderConfig:
     warn_on_drop: bool = True
 
     # Tile size for the tiled/Pallas rasterizer.  The Pallas kernel requires
-    # 32×32: a 32×32 pixel tile holds exactly one (8, 128) VPU register
-    # (4 row-groups of 8 rows × 32 cols packed along lanes), and a square-ish
-    # tile wastes far less masked work on typical splat footprints than the
-    # raw (8, 128) register shape would.
+    # 32×32: one program composites one tile's 1024 pixels (a power of two,
+    # as Triton blocks need), and a square tile wastes less masked work on
+    # typical splat footprints than a strip of the same size.
     tile_h: int = 32
     tile_w: int = 32
 
@@ -52,9 +51,16 @@ class RenderConfig:
     # skipped anyway).  Must be a multiple of the compositing chunk size.
     tile_capacity: int = 4096
 
-    # Pallas compositing chunk: pairs are DMA'd HBM→VMEM in blocks of this
-    # many rows, and per-tile segments are padded to this alignment.
-    chunk: int = 128
+    # Compositing-kernel pair chunk (a power of two that divides
+    # tile_capacity): a tile checks for early termination and the forward
+    # checkpoints its transmittance once per chunk, and the backward
+    # replays one chunk at a time with every pair's transmittance held in
+    # registers — so the chunk trades checkpoint memory (4 KB per chunk of
+    # pairs) against registers.  On an H100 chunk 16 runs the 1M/1080p
+    # forward+backward 2.4× slower than chunk 8 (the held vectors outgrow
+    # the registers); chunk 4 is 9% faster than 8 but doubles the
+    # checkpoints, which matters at the 2^23 envelope.
+    chunk: int = 8
 
     # Upper clamp on per-fragment alpha.  The reference clamps to 1.0
     # (GSplatShaderSource.h:308); values < 1 keep the backward pass's
@@ -78,34 +84,22 @@ class RenderConfig:
     # exact reference parity.
     soft_cutoff: bool = False
 
-    # Rasterization payload precision — the TPU analogue of the reference's
-    # storage policy (pos fp32, color/scale/orient/SH fp16:
-    # gsplat_plugin/include/GR_GSplat.h:120-127, src/GSplatRenderer.C:91-101).
-    # "bfloat16" rounds the 10 compositor payload rows (center, quad basis,
-    # rgb, opacity) of the projected field matrix to bf16 before
-    # rasterization, in EVERY backend — so pallas↔tiles↔oracle parity tests
-    # remain bit-exact among themselves, and quality deltas vs fp32 are
-    # tolerance-tested.  Geometry rows (depth key, validity, footprint) stay
-    # fp32.  On TPU this is a precision/storage knob, not a speed knob: the
-    # hot gathers are per-query bound (bf16 gathers measured no faster —
-    # scripts/profile_tail.py), so pair with GaussianSplats.astype(bfloat16)
-    # when the goal is halving splat-storage HBM.
+    # Rasterization payload precision — a quantization policy, the analogue
+    # of the reference's storage policy (pos fp32, color/scale/orient/SH
+    # fp16: gsplat_plugin/include/GR_GSplat.h:120-127,
+    # src/GSplatRenderer.C:91-101), applied by ``quantize_payload`` in EVERY
+    # backend, so pallas↔tiles↔oracle parity tests remain bit-exact among
+    # themselves and quality deltas vs fp32 are tolerance-tested.  The
+    # compositing kernel always reads the (rounded) payload as f32 rows.
     #
-    # "packed" is the production-performance policy: geometry rows (center,
-    # quad basis) stay f32 and only color+opacity round to bf16 — STRICTLY
-    # higher precision than "bfloat16", and the closest analogue of the
-    # reference's storage split (pos fp32, color/alpha fp16).  The pallas
-    # path then bit-packs the four rounded rows pairwise ((r,g), (b,op))
-    # into two f32 rows, shrinking the pair payload from 10 to 8 rows — one
-    # gather-unit sublane group instead of two, which nearly halves the
-    # payload gather and the per-chunk kernel DMA (the TPU gather unit
-    # fetches sublanes in groups of 8).  The backward kernel likewise packs
-    # (Σdc_g·w, Σdc_b·w) to emit an 8-row gradient space (single-group
-    # readback): color-g/b gradients (and the SH gradients fed by them)
-    # carry bf16 rounding of their per-pair summands (~0.2% rel); all other
-    # gradient rows stay exact.  Pack/unpack round-trips are bit-exact for
-    # bf16-rounded values, so pallas↔tiles↔oracle IMAGE parity remains
-    # bit-exact under the shared quantization.
+    # "bfloat16" rounds the 10 compositor payload rows (center, quad basis,
+    # rgb, opacity) to bf16; geometry rows (depth key, validity, footprint)
+    # stay fp32.
+    #
+    # "packed" keeps the geometric rows (center, quad basis) f32 and rounds
+    # only color+opacity to bf16 — strictly higher precision than
+    # "bfloat16", and the closest analogue of the reference's storage split
+    # (pos fp32, color/alpha fp16).  The production benchmark uses it.
     payload_dtype: str = "float32"
 
     # Wireframe debug mode (the reference's line-quad pass,
@@ -134,7 +128,7 @@ class RenderConfig:
     # When > 0, each device compacts, per destination strip, only its local
     # splats whose footprint overlaps that strip into a bucket of
     # ceil(strip_exchange_factor · N/d) columns and ships buckets with ONE
-    # all_to_all (ICI): per-device payload memory and sort size drop from
+    # all_to_all: per-device payload memory and sort size drop from
     # O(N) to O(strip_exchange_factor · N) — sub-O(N) per device, the
     # scaling wall of the replicated design.  Bucket overflow drops the
     # excess columns (warned once, like the pair-budget cull); with a
@@ -172,9 +166,8 @@ class RenderConfig:
     # ``render(..., background_depth=...)``: per pixel, splat contributions
     # whose center's view-space depth exceeds the scene depth are killed
     # before blending, and the result composes over the scene color with
-    # the under operator.  Needs the per-splat view-z payload row, which
-    # the 8-row packed payload has no slot for — use payload_dtype
-    # "float32"/"bfloat16" with depth_test (validated below).
+    # the under operator.  Carries the per-splat view-z as an extra payload
+    # row; not combined with payload_dtype "packed" (validated below).
     depth_test: bool = False
 
     # Exact pair budget override (0 = derive from pairs_per_splat·N).  Set
@@ -202,11 +195,8 @@ class RenderConfig:
     def __post_init__(self):
         if not 0 <= self.sh_order <= 3:
             raise ValueError(f"sh_order must be in [0,3], got {self.sh_order}")
-        if self.chunk % 8 != 0:
-            # The backward gradient walk runs in groups of GUNROLL = 8 pairs
-            # (== PACK_SUB, the store-alignment unit); a non-multiple chunk
-            # would silently skip the trailing chunk % 8 pairs per chunk.
-            raise ValueError("chunk must be a multiple of 8")
+        if self.chunk < 1 or self.chunk & (self.chunk - 1):
+            raise ValueError("chunk must be a power of two")
         if self.row_assignment not in ("cyclic", "contiguous"):
             raise ValueError(
                 f"row_assignment must be 'cyclic' or 'contiguous', got "
@@ -215,15 +205,12 @@ class RenderConfig:
         if self.row_stride < 1 or self.col_stride < 1:
             raise ValueError("row/col_stride must be >= 1")
         if self.depth_test and self.payload_dtype == "packed":
+            # Not wired together: the packed policy is the production
+            # beauty pass only (ROADMAP, Reach 3).
             raise ValueError(
-                "depth_test needs the view-z payload row; the 8-row packed "
-                "payload has no slot for it — use payload_dtype='float32' "
-                "or 'bfloat16'"
+                "depth_test is not supported with payload_dtype='packed' — "
+                "use payload_dtype='float32' or 'bfloat16'"
             )
-        if self.payload_dtype == "packed" and self.chunk % 128 != 0:
-            # int32 payload DMA slices must be 128-lane aligned (Mosaic
-            # rejects chunk=64 at compile time with the packed layout).
-            raise ValueError("packed payload requires chunk % 128 == 0")
         if self.tile_capacity % self.chunk != 0:
             raise ValueError("tile_capacity must be a multiple of chunk")
         if self.payload_dtype not in ("float32", "bfloat16", "packed"):

@@ -1,6 +1,6 @@
 """Leveled logging with once-per-condition dedup.
 
-TPU-native equivalent of the reference's ``GSplatLogger`` /
+The equivalent of the reference's ``GSplatLogger`` /
 ``GSplatOneTimeLogger`` (``gsplat_plugin/src/GSplatLogger.C:23-138``): three
 levels routed to streams, printf-style formatting, thousands separators for
 counts, and — the pattern SURVEY.md §5 flags as worth keeping verbatim — a

@@ -1,7 +1,7 @@
 """Profiling + metrics harness.
 
 The reference has no tracing/profiling at all (SURVEY.md §5).  This provides
-the TPU-native observability layer: ``jax.profiler`` trace annotations around
+the observability layer: ``jax.profiler`` trace annotations around
 pipeline phases, a wall-clock phase timer, and the frames/sec measurement
 harness used by ``bench.py`` and the BASELINE metrics.
 """

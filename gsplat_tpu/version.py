@@ -1,6 +1,6 @@
 """Package version.
 
-TPU-native analogue of the reference's version header
+The analogue of the reference's version header
 (``gsplat_plugin/include/GSplatPluginVersion.h:4`` — "1.4.1"); surfaced in
 logs once per process like the reference does in
 ``gsplat_plugin/src/GSplatRenderer.C:234``.

@@ -1,8 +1,8 @@
 """Scaling-efficiency measurement over a virtual device mesh.
 
 Measures sharded-render throughput at 1/2/4/8 devices and writes
-``SCALING_r02.json``.  On this container only ONE real TPU chip exists, so
-the mesh is virtual CPU devices (``--xla_force_host_platform_device_count``):
+``chiprun_out/scaling.json``.  It takes no device time: the mesh is virtual
+CPU devices (``--xla_force_host_platform_device_count``):
 all N devices timeshare the same host cores, which makes wall-clock
 *speedup* pessimistic (compute does not scale), but faithfully charges the
 real distribution overheads — the all_gather exchange, the replicated sort,
@@ -10,7 +10,7 @@ and per-strip binning — so the reported efficiency is a LOWER bound on what
 disjoint chips would achieve for the non-replicated fraction.
 
 Also reports the per-device work decomposition (replicated vs sharded
-bytes/ops) that determines the ICI-hardware ceiling.
+bytes/ops) that determines the interconnect ceiling.
 
 Usage: python scripts/measure_scaling.py [--splats N] [--out FILE]
 """
@@ -40,7 +40,7 @@ def main():
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--out", default="SCALING_r02.json")
+    ap.add_argument("--out", default=os.path.join("chiprun_out", "scaling.json"))
     args = ap.parse_args()
 
     import gsplat_tpu as gt
@@ -108,6 +108,7 @@ def main():
         "results": results,
         "decomposition": decomp,
     }
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print("wrote", args.out)

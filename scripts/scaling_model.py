@@ -1,8 +1,8 @@
-"""SCALING_r05: exact distribution model + virtual-mesh wall-clock floor.
+"""Exact distribution model + virtual-mesh wall-clock floor.
 
-Only one real TPU chip exists in this container, so multi-chip efficiency
-cannot be *measured* — but the quantities that determine it CAN be computed
-exactly without hardware, per device and per frame:
+Multi-device efficiency is measured on the cards; the quantities that
+determine it can be computed exactly without hardware, per device and per
+frame, on a virtual CPU mesh (no device time):
 
 * bytes-on-wire of the payload collective (all_gather vs the strip-compacted
   all_to_all, under the fp32 and bf16 payload policies);
@@ -20,7 +20,7 @@ to ~factor·N.  A virtual 8-device CPU mesh wall clock is appended as a
 sanity floor only (all devices timeshare one host: speedup there is
 meaningless, correctness of the distributed graph is what it checks).
 
-Usage: python scripts/scaling_model.py [--out SCALING_r04.json]
+Usage: python scripts/scaling_model.py [--out chiprun_out/scaling_model.json]
 """
 
 import argparse
@@ -100,7 +100,7 @@ def model_for(splats, cam, d, cfg):
     bucket = int(np.ceil(factor * n_local)) if factor > 0 else None
 
     def wire(cols, col_bytes):
-        # bytes RECEIVED per device over ICI (sends are symmetric)
+        # bytes RECEIVED per device (sends are symmetric)
         return (d - 1) * cols * col_bytes
 
     row = {
@@ -200,7 +200,7 @@ def wallclock_floor(iters=4):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="SCALING_r05.json")
+    ap.add_argument("--out", default=os.path.join("chiprun_out", "scaling_model.json"))
     args = ap.parse_args()
 
     import gsplat_tpu as gt
@@ -217,7 +217,7 @@ def main():
                 "needs the per-device pair share (pair_parallel_efficiency) "
                 "and the collective bytes to stay small vs per-device "
                 "compute — both reported here per device count.  'cyclic' "
-                "is the renderer's default row assignment (round 5): "
+                "is the renderer's default row assignment: "
                 "interleaved tile rows average center-heavy distributions "
                 "over devices; 'contiguous' is kept for the strip-compacted "
                 "exchange (which needs coherent strips) and for comparison.",
@@ -234,6 +234,7 @@ def main():
         out["scenes"].append(scene)
 
     out["virtual_mesh_wallclock_floor"] = wallclock_floor()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({"written": args.out}))

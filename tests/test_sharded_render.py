@@ -69,7 +69,7 @@ class TestShardedRender:
                 render_sharded(s, cam, cfg, mesh, backend="tiles")[..., :3]
             )
 
-        g = jax.grad(loss)(sharded)
+        g = jax.jit(jax.grad(loss))(sharded)
         leaves = jax.tree_util.tree_leaves(g)
         assert all(bool(jnp.isfinite(x).all()) for x in leaves)
         assert any(float(jnp.abs(x).max()) > 0 for x in leaves)
@@ -138,14 +138,13 @@ class TestShardedRender:
 
 
 class TestShardedPallas:
-    """The production multi-chip combination — the fused Pallas kernels
+    """The production multi-device combination — the fused Pallas kernels
     under ``shard_map`` — executed through the Pallas interpreter on the CPU
     mesh: strip binning with a nonzero ``row_offset`` feeding the kernel's
-    ``yoff_ref``, per-strip pair budgets, and the custom-VJP backward (grad
-    address space + segment reduce) inside a sharded gradient.  One test,
-    one small scene: interpret-mode execution costs minutes per compiled
-    graph, so image parity, row-offset correctness, and gradients share the
-    same two compilations."""
+    tile-offset input, per-strip pair budgets, and the custom-VJP backward
+    (per-pair gradient rows + per-splat segment sum) inside a sharded
+    gradient.  One test, one small scene, so image parity, row-offset
+    correctness, and gradients share the same two compilations."""
 
     def test_sharded_pallas_interpret_parity_and_grads(self):
         splats, cam = scene(n=32, w=64, h=96)
@@ -164,12 +163,14 @@ class TestShardedPallas:
             img = render_sharded(s, cam, cfg, mesh, backend=backend)
             return jnp.sum(img[..., :3] * w), img
 
-        (_, img_p), g_p = jax.value_and_grad(
+        # jitted: run op by op, a sharded program dispatches every
+        # primitive separately on every device
+        (_, img_p), g_p = jax.jit(jax.value_and_grad(
             lambda s: loss(s, "pallas_interpret"), has_aux=True
-        )(sharded)
-        (_, img_t), g_t = jax.value_and_grad(
+        ))(sharded)
+        (_, img_t), g_t = jax.jit(jax.value_and_grad(
             lambda s: loss(s, "tiles"), has_aux=True
-        )(sharded)
+        ))(sharded)
         img_p, img_t = np.asarray(img_p), np.asarray(img_t)
         np.testing.assert_allclose(img_p, img_t, atol=1e-5)
         # the strided row mapping is load-bearing: all three 32-px bands
@@ -177,8 +178,8 @@ class TestShardedPallas:
         full = np.asarray(render_tiles(pad_splats(splats, 2), cam, cfg))
         np.testing.assert_allclose(img_p, full, atol=1e-5)
         assert not np.allclose(full[32:64], full[:32], atol=1e-3)
-        # gradients through the sharded pallas VJP (grad address space +
-        # segment reduce under shard_map)
+        # gradients through the sharded pallas VJP (per-pair rows +
+        # segment sum under shard_map)
         for f in ("pos", "orient", "scale", "opacity", "color", "sh"):
             a = np.asarray(getattr(g_t, f))
             b = np.asarray(getattr(g_p, f))
